@@ -1,0 +1,28 @@
+"""Paper core, PyTorch port: Gauss-type quadrature bounds for bilinear
+inverse forms, driven by the retrospective solver (paper Alg. 2)::
+
+    from repro_torch.core import BIFSolver, Dense
+
+    solver = BIFSolver.create(max_iters=64, rtol=1e-3, backend="fused")
+    res = solver.solve_batch(Dense(a), us, lam_min=lmn, lam_max=lmx)
+
+Public names follow ``repro.core``: solver.{BIFSolver, SolverConfig,
+SolveResult, JudgeResult, ArgmaxResult, QuadratureTrace, QuadState},
+operators.{Dense, SparseCOO, SparseBELL, Masked, Shifted, Jacobi,
+MatvecFn, stack_ops, stack_masks, bell_from_dense, sparse_from_dense},
+gql.{gql_init, gql_step, GQLState}, spectrum.{lanczos_extremal,
+gershgorin_bounds, ridge_bounds}, loop_utils.tree_freeze and
+bounds.{bif_bounds_trace, BIFTrace, BIFBounds}.
+"""
+from . import bounds, gql, lanczos, loop_utils, operators, solver, \
+    spectrum  # noqa: F401
+
+from .solver import ArgmaxResult, BIFSolver, JudgeResult, \
+    QuadratureTrace, QuadState, SolveResult, SolverConfig  # noqa: F401
+from .loop_utils import tree_freeze  # noqa: F401
+from .operators import Dense, Jacobi, Masked, MatvecFn, Shifted, \
+    SparseBELL, SparseCOO, bell_from_dense, sparse_from_dense, \
+    stack_masks, stack_ops  # noqa: F401
+from .spectrum import SpectrumBounds, gershgorin_bounds, \
+    lanczos_extremal, ridge_bounds  # noqa: F401
+from .bounds import BIFBounds, BIFTrace, bif_bounds_trace  # noqa: F401

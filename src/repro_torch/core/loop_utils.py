@@ -1,0 +1,30 @@
+"""Lane freezing for lockstep-batched retrospective loops.
+
+Every adaptive driver advances a NamedTuple of per-lane tensors and must
+keep lanes that already resolved their decision *bit-exactly* frozen while
+other lanes continue. ``tree_freeze`` is the single implementation of that
+rule (counterpart of ``repro.core.loop_utils.tree_freeze``).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tree_freeze(new, old, frozen: torch.Tensor):
+    """Select ``old`` leaves wherever ``frozen`` is True, else ``new``.
+
+    ``new``/``old`` are tensors, ``None`` or (named) tuples of them with
+    the same structure. ``frozen`` is a bool tensor over the lane dims;
+    each leaf may carry extra trailing dims (e.g. Lanczos vectors of shape
+    (..., N)), broadcast by appending singleton axes.
+    """
+    if new is None:
+        return None
+    if isinstance(new, torch.Tensor):
+        f = frozen.reshape(frozen.shape + (1,) * (new.ndim - frozen.ndim))
+        return torch.where(f, old, new)
+    if isinstance(new, tuple):
+        leaves = [tree_freeze(n, o, frozen) for n, o in zip(new, old)]
+        return type(new)(*leaves) if hasattr(new, "_fields") \
+            else tuple(leaves)
+    raise TypeError(f"tree_freeze: unsupported leaf type {type(new).__name__}")

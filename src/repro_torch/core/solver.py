@@ -1,0 +1,614 @@
+"""The retrospective-quadrature solver, paper Alg. 2, for scalar lanes
+(counterpart of ``repro.core.solver``).
+
+    solver = BIFSolver(SolverConfig(max_iters=64, rtol=1e-3))
+    res = solver.solve(op, u, lam_min=lmn, lam_max=lmx)   # SolveResult
+    res = solver.solve(op, u, decide=lambda lo, hi: t < lo)
+
+The loop is a resumable state machine: ``init_state`` / ``step_n`` /
+``resume`` / ``finalize`` operate on a :class:`QuadState`, and ``solve``
+is ``finalize(resume(init_state(...)))``. Where the reference runs
+``jax.lax.while_loop`` on the device, this port runs a host loop over
+decision rounds: each round takes ``decide_every`` steps on the device
+and then makes exactly one device-to-host read, ``needs_more.any()``,
+to decide whether another round is needed. Lanes that are done are
+frozen bit-exactly (``loop_utils.tree_freeze``).
+
+The solver computes on the device of the operator it is given, and
+raises if the query lies on another device. ``backend='pallas'`` routes
+the recurrence through kernel K1 and SparseBELL matvecs through K2;
+``backend='fused'`` runs each iteration as one fused step, K3 (dense) or
+K4 (blocked-ELL) (``kernels/lanczos_step.py``).
+
+Not in this slice: ``fn != 'inv'`` (matrix functions), ``block_size > 1``
+(block-Krylov), the pair / k-DPP / double-greedy judges and the sharded
+drivers; see ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from . import gql as _gql
+from . import operators as _ops
+from . import spectrum as _spectrum
+from .loop_utils import tree_freeze
+
+Tensor = torch.Tensor
+
+_SPECTRA = ("explicit", "gershgorin", "lanczos", "ridge")
+_PRECONDITIONS = ("none", "jacobi")
+_BACKENDS = ("reference", "pallas", "fused")
+_FNS = ("inv", "log", "invsqrt", "sqrt")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Policy knobs for the retrospective driver; the reference's field
+    names, values and validation, so one set of kwargs drives both
+    packages."""
+    max_iters: int = 64
+    rtol: float = 1e-2
+    atol: float = 0.0
+    spectrum: str = "explicit"       # 'explicit'|'gershgorin'|'lanczos'|'ridge'
+    precondition: str = "none"       # 'none'|'jacobi'
+    reorth: bool = False
+    backend: str = "reference"       # 'reference'|'pallas'|'fused'
+    decide_every: int = 1            # decision-round cadence R (>= 1)
+    spectrum_iters: int = 16         # Lanczos steps for spectrum estimation
+    ridge: float = 0.0               # known ridge for spectrum='ridge'
+    pallas_interpret: bool | None = None  # True raises on CUDA operands
+    fn: str = "inv"                  # only 'inv' in this slice
+    block_size: int = 1              # only 1 in this slice
+
+    def __post_init__(self):
+        if self.spectrum not in _SPECTRA:
+            raise ValueError(f"spectrum must be one of {_SPECTRA}, "
+                             f"got {self.spectrum!r}")
+        if self.precondition not in _PRECONDITIONS:
+            raise ValueError(f"precondition must be one of {_PRECONDITIONS}, "
+                             f"got {self.precondition!r}")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.max_iters < 1:
+            raise ValueError("max_iters must be >= 1")
+        if self.decide_every < 1:
+            raise ValueError(
+                f"decide_every must be >= 1, got {self.decide_every}")
+        if self.fn not in _FNS:
+            raise ValueError(f"fn must be one of {_FNS}, got {self.fn!r}")
+        if self.fn != "inv" and self.precondition != "none":
+            raise ValueError(
+                "precondition='jacobi' is an identity for u^T A^-1 u only "
+                "(u^T f(A) u has no similarity-transform counterpart); "
+                "fn != 'inv' requires precondition='none'")
+        if self.block_size < 1:
+            raise ValueError(
+                f"block_size must be >= 1, got {self.block_size}")
+        if self.block_size > 1 and self.reorth:
+            raise NotImplementedError(
+                "reorthogonalization is not implemented for the block "
+                "recurrence; block_size > 1 requires reorth=False")
+        if self.block_size > 1 and self.precondition != "none":
+            raise NotImplementedError(
+                "block_size > 1 requires precondition='none'")
+        if self.fn != "inv":
+            raise NotImplementedError(
+                f"fn={self.fn!r}: matrix functions are a later slice of the "
+                f"port (ROADMAP.md Queue 1, 'Matrix functions and "
+                f"stochastic trace'); this slice brackets u^T A^-1 u only")
+        if self.block_size > 1:
+            raise NotImplementedError(
+                f"block_size={self.block_size}: block-Krylov mode is the "
+                f"next slice of the port (ROADMAP.md Queue 1, "
+                f"'Block-Krylov', with kernel K5)")
+
+
+class SolveResult(NamedTuple):
+    """Rich per-lane outcome of one retrospective solve."""
+    lower: Tensor          # best lower bound (right Gauss-Radau, Thm. 4)
+    upper: Tensor          # best upper bound (left Gauss-Radau, Thm. 6)
+    gauss_lower: Tensor    # plain Gauss lower bound (Thm. 2)
+    lobatto_upper: Tensor  # Gauss-Lobatto upper bound
+    iterations: Tensor     # int32 quadrature iterations spent per lane
+    converged: Tensor      # resolved by bounds OR Krylov space exhausted
+    certified: Tensor      # resolved by the bounds alone
+    state: Any             # final QuadState (resume()-able checkpoint)
+
+
+class JudgeResult(NamedTuple):
+    decision: Tensor     # bool
+    certified: Tensor    # bool, True if resolved by bounds
+    iterations: Tensor   # int32 total quadrature iterations spent
+
+
+class ArgmaxResult(NamedTuple):
+    """Outcome of a certified argmax race over K candidate lanes."""
+    index: Tensor        # int32 winning lane (last axis of the batch)
+    certified: Tensor    # bool, winner's lower bound cleared every rival
+    iterations: Tensor   # (..., K) int32 per-lane iterations spent
+    lower: Tensor        # (..., K) final score lower bounds
+    upper: Tensor        # (..., K) final score upper bounds
+
+
+class QuadratureTrace(NamedTuple):
+    gauss: Tensor        # (iters, ...) lower
+    radau_lower: Tensor  # (iters, ...) right Gauss-Radau
+    radau_upper: Tensor  # (iters, ...) left Gauss-Radau
+    lobatto: Tensor      # (iters, ...) upper
+
+
+class QuadState(NamedTuple):
+    """Checkpointable retrospective-solve state: the prepared operator,
+    the GQL recurrence state, the spectral interval, the reorth basis (or
+    None), the global step counter (the basis write cursor), and the
+    matfun coefficient history (always None in this slice).
+
+    Invariant: ``resume(step_n(state, k))`` is the same computation as
+    ``resume(state)``."""
+    op: Any
+    st: Any           # gql.GQLState
+    lam_min: Tensor
+    lam_max: Tensor
+    basis: Any        # (..., M, N) reorth storage, or None
+    step: Tensor      # int32, global steps taken since init
+    coeffs: Any = None
+
+    def bracket(self) -> tuple:
+        return _gql.lower_bound(self.st), _gql.upper_bound(self.st)
+
+    @property
+    def lower(self) -> Tensor:
+        return self.bracket()[0]
+
+    @property
+    def upper(self) -> Tensor:
+        return self.bracket()[1]
+
+    @property
+    def it(self) -> Tensor:
+        return self.st.it
+
+    @property
+    def done(self) -> Tensor:
+        return self.st.done
+
+
+def _argmax_scores(lo: Tensor, hi: Tensor, shift, scale, valid,
+                   prior_upper=None, prior_lower=None):
+    """Per-lane score brackets ``shift + scale * [lo, hi]`` for the argmax
+    race, with invalid lanes pinned at a large negative sentinel.
+    ``prior_upper``/``prior_lower`` clamp the bracket to externally-known
+    valid bounds (never past the lane's own other side)."""
+    big_neg = torch.tensor(-1e30, dtype=lo.dtype, device=lo.device)
+    a = shift + scale * lo
+    b = shift + scale * hi
+    slo, shi = torch.minimum(a, b), torch.maximum(a, b)
+    if prior_upper is not None:
+        shi = torch.maximum(torch.minimum(shi, torch.as_tensor(
+            prior_upper, dtype=shi.dtype, device=shi.device)), slo)
+    if prior_lower is not None:
+        slo = torch.minimum(torch.maximum(slo, torch.as_tensor(
+            prior_lower, dtype=slo.dtype, device=slo.device)), shi)
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=lo.device)
+        slo = torch.where(valid, slo, big_neg)
+        shi = torch.where(valid, shi, big_neg)
+    return slo, shi
+
+
+def _argmax_race(slo: Tensor, shi: Tensor):
+    """(dominated, winner) per lane of the certified argmax race."""
+    k = shi.shape[-1]
+    if k == 1:
+        return (torch.zeros_like(shi, dtype=torch.bool),
+                torch.ones_like(shi, dtype=torch.bool))
+    best_lo = torch.amax(slo, dim=-1, keepdim=True)
+    dominated = shi < best_lo
+    order = torch.sort(shi, dim=-1).values
+    top1, top2 = order[..., -1:], order[..., -2:-1]
+    leader = torch.argmax(shi, dim=-1, keepdim=True)
+    rival_hi = torch.where(torch.arange(k, device=shi.device) == leader,
+                           top2, top1)
+    winner = slo >= rival_hi
+    return dominated, winner
+
+
+def _first_argmax(x: Tensor) -> Tensor:
+    """Index of the first maximum along the last axis. torch.argmax takes
+    no bool tensor, so a bool mask is cast to int first."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
+    return torch.argmax(x, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BIFSolver:
+    """One retrospective quadrature driver; see the module docstring."""
+    config: SolverConfig = SolverConfig()
+
+    @classmethod
+    def create(cls, **config_kwargs) -> "BIFSolver":
+        return cls(SolverConfig(**config_kwargs))
+
+    def replace(self, **config_kwargs) -> "BIFSolver":
+        return BIFSolver(dataclasses.replace(self.config, **config_kwargs))
+
+    # -- backend / problem preparation --------------------------------------
+
+    def _stepper(self):
+        """One-iteration GQL step per ``config.backend``:
+        ``stepfn(op, st, lam_min, lam_max, basis)``. 'fused' runs the
+        whole iteration as one fused step (K3/K4); 'reference'/'pallas'
+        compose ``gql.gql_step`` with the configured recurrence."""
+        if self.config.backend == "fused":
+            from ..kernels.lanczos_step import gql_step_fused
+            return gql_step_fused
+        rec = self._recurrence()
+
+        def composed_step(op, st, lam_min, lam_max, basis=None):
+            return _gql.gql_step(op, st, lam_min, lam_max, basis=basis,
+                                 recurrence=rec)
+
+        return composed_step
+
+    def _recurrence(self):
+        """Scalar-recurrence implementation per ``config.backend``."""
+        if self.config.backend != "pallas":
+            return None  # gql_step default: gql.recurrence_update
+        from ..kernels import ops as _kops
+
+        def pallas_recurrence(alpha_n, beta_n, beta_p, g, c, delta,
+                              d_lr, d_rr, lam_min, lam_max):
+            shape = g.shape
+
+            def flat(x):
+                x = torch.as_tensor(x, dtype=g.dtype, device=g.device)
+                return torch.broadcast_to(x, shape).reshape(-1)
+
+            outs = _kops.gql_update(
+                flat(alpha_n), flat(beta_n), flat(beta_p), flat(g), flat(c),
+                flat(delta), flat(d_lr), flat(d_rr), flat(lam_min),
+                flat(lam_max))
+            return tuple(o.reshape(shape) for o in outs)
+
+        return pallas_recurrence
+
+    def prepare(self, op, u: Tensor, lam_min=None, lam_max=None, probe=None):
+        """Apply preconditioning and resolve the spectral interval.
+
+        Returns ``(op, u, lam_min, lam_max)`` ready for ``gql_init``.
+        Explicitly passed ``lam_min``/``lam_max`` always win; missing ends
+        are filled per ``config.spectrum``. With
+        ``precondition='jacobi'`` an explicit interval must bound the
+        spectrum of the transformed operator ``D^-1/2 A D^-1/2``.
+        """
+        cfg = self.config
+        dev = _ops.op_device(op)
+        if not isinstance(u, torch.Tensor) or u.device != dev:
+            where = u.device if isinstance(u, torch.Tensor) else type(u)
+            raise ValueError(f"the query u must be a tensor on the "
+                             f"operator's device {dev}, got {where}")
+        if cfg.pallas_interpret and dev.type == "cuda":
+            raise ValueError("pallas_interpret=True with CUDA operands: "
+                             "there is no interpret mode on the card")
+        op = _ops.configure_backend(op, cfg.backend, cfg.pallas_interpret)
+        if cfg.precondition == "jacobi":
+            pop = _ops.Jacobi.create(op)
+            u = pop.transform_vector(u)
+            op = pop
+        if lam_min is not None and lam_max is not None:
+            return op, u, lam_min, lam_max
+
+        if cfg.spectrum == "explicit":
+            raise ValueError(
+                "spectrum='explicit' requires lam_min and lam_max; pass "
+                "them to solve()/judge_*() or pick an estimating spectrum "
+                "mode ('gershgorin' | 'lanczos' | 'ridge')")
+        if cfg.spectrum == "gershgorin":
+            est = _spectrum.gershgorin_bounds_spd(op)
+        else:
+            if probe is None:
+                probe = torch.where(u.abs() > 0, u, torch.ones_like(u))
+            if cfg.spectrum == "ridge":
+                est = _spectrum.ridge_bounds(op, cfg.ridge, probe,
+                                             num_iters=cfg.spectrum_iters)
+            else:  # 'lanczos'
+                est = _spectrum.lanczos_extremal(
+                    op, probe, num_iters=cfg.spectrum_iters)
+        lam_min = est.lam_min if lam_min is None else lam_min
+        lam_max = est.lam_max if lam_max is None else lam_max
+        return op, u, lam_min, lam_max
+
+    # -- the resumable runtime ------------------------------------------------
+
+    def _needs_more_fn(self, decide, it_cap=None):
+        """(needs_more(st), resolved(st)): a lane keeps stepping while it
+        is not done, not resolved by ``decide`` (None = the tolerance
+        rule), and below ``max_iters`` and the optional ``it_cap``."""
+        local_ok = self._local_ok_fn(it_cap)
+
+        def resolved(st):
+            lo, hi = _gql.lower_bound(st), _gql.upper_bound(st)
+            if decide is None:
+                return self.tolerance_resolved(lo, hi)
+            return decide(lo, hi)
+
+        def needs_more(st):
+            return local_ok(st) & ~resolved(st)
+
+        return needs_more, resolved
+
+    def _local_ok_fn(self, it_cap=None):
+        """The decide-free per-lane continuation conditions, applied at
+        every step even inside a ``decide_every`` round."""
+        max_iters = self.config.max_iters
+
+        def local_ok(st):
+            ok = ~st.done & (st.it < max_iters)
+            if it_cap is not None:
+                ok = ok & (st.it < it_cap)
+            return ok
+
+        return local_ok
+
+    def _advance(self, op, st, lam_min, lam_max, basis, step, stepfn):
+        """One unconditional GQL step + reorth-basis bookkeeping (no
+        freezing). The basis row index clamps to the last row, as the
+        reference's ``dynamic_update_index_in_dim`` does."""
+        st1 = stepfn(op, st, lam_min, lam_max, basis)
+        if basis is None:
+            return st1, None
+        idx = torch.clamp(step + 2, max=basis.shape[-2] - 1)
+        basis1 = basis.index_copy(-2, idx.reshape(1).long(),
+                                  st1.lz.v.unsqueeze(-2))
+        return st1, basis1
+
+    def init_state(self, op, u: Tensor, *, lam_min=None, lam_max=None,
+                   probe=None, basis_rows: int | None = None) -> QuadState:
+        """Prepare the problem and take iteration 1 (Alg. 5 init).
+        ``basis_rows`` sizes the reorthogonalization storage when
+        ``config.reorth`` (default ``max_iters + 1``)."""
+        cfg = self.config
+        op, u, lam_min, lam_max = self.prepare(op, u, lam_min, lam_max,
+                                               probe)
+        dev = u.device
+        lam_min = torch.as_tensor(lam_min, dtype=u.dtype, device=dev)
+        lam_max = torch.as_tensor(lam_max, dtype=u.dtype, device=dev)
+        st0 = _gql.gql_init(op, u, lam_min, lam_max)
+        if cfg.reorth:
+            rows = cfg.max_iters + 1 if basis_rows is None else basis_rows
+            basis = self._alloc_basis(st0, u, rows)
+        else:
+            basis = None
+        return QuadState(op=op, st=st0, lam_min=lam_min, lam_max=lam_max,
+                         basis=basis,
+                         step=torch.zeros((), dtype=torch.int32, device=dev),
+                         coeffs=None)
+
+    def _round_body(self, op, lam_min, lam_max, stepfn, local_ok):
+        """One ``decide_every`` round: R substeps with local-only freezing
+        (breakdown / max_iters / it_cap apply at once; the stopping rule
+        waits for the round boundary). ``round_fn((st, basis, step, nm))``
+        returns the same tuple."""
+        r = self.config.decide_every
+
+        def round_fn(carry):
+            st, basis, step, nm = carry
+            for _ in range(r):
+                st1, basis1 = self._advance(op, st, lam_min, lam_max, basis,
+                                            step, stepfn)
+                frozen = ~nm
+                st1 = tree_freeze(st1, st, frozen)
+                if basis is not None:
+                    basis1 = tree_freeze(basis1, basis, frozen)
+                nm = nm & local_ok(st1)
+                st, basis, step = st1, basis1, step + 1
+            return st, basis, step, nm
+
+        return round_fn
+
+    def step_n(self, state: QuadState, n: int, decide=None, *,
+               it_cap=None) -> QuadState:
+        """Advance ``state`` by at most ``n`` quadrature iterations, with
+        the same freezing as ``resume``, so ``resume(step_n(state, k))``
+        reproduces ``resume(state)``. With ``decide_every = R`` states stay
+        round-aligned: at most ``floor(n / R) * R`` steps (``n < R`` is a
+        no-op). One ``needs_more.any()`` host read per round."""
+        if n < 0:
+            raise ValueError(f"n must be >= 0, got {n}")
+        rounds = n // self.config.decide_every
+        if rounds == 0:
+            return state
+        stepfn = self._stepper()
+        needs_more, _ = self._needs_more_fn(decide, it_cap)
+        round_fn = self._round_body(state.op, state.lam_min, state.lam_max,
+                                    stepfn, self._local_ok_fn(it_cap))
+        st, basis, step = state.st, state.basis, state.step
+        nm = needs_more(st)
+        taken = 0
+        while taken < rounds and bool(nm.any()):  # one host read per round
+            st, basis, step, _ = round_fn((st, basis, step, nm))
+            nm = needs_more(st)
+            taken += 1
+        return state._replace(st=st, basis=basis, step=step)
+
+    def resume(self, state: QuadState, decide=None, *,
+               it_cap=None) -> QuadState:
+        """Run the retrospective loop (Alg. 2) from ``state`` until
+        ``decide`` resolves on every lane (or breakdown / ``max_iters`` /
+        ``it_cap``), freezing resolved lanes bit-exactly. One
+        ``needs_more.any()`` host read per round of ``decide_every``
+        steps."""
+        stepfn = self._stepper()
+        needs_more, _ = self._needs_more_fn(decide, it_cap)
+        round_fn = self._round_body(state.op, state.lam_min, state.lam_max,
+                                    stepfn, self._local_ok_fn(it_cap))
+        st, basis, step = state.st, state.basis, state.step
+        nm = needs_more(st)
+        while bool(nm.any()):  # the round's one device-to-host read
+            st, basis, step, _ = round_fn((st, basis, step, nm))
+            nm = needs_more(st)
+        return state._replace(st=st, basis=basis, step=step)
+
+    def resume_chunked(self, state: QuadState, decide=None, *,
+                       chunk_iters: int, it_cap=None) -> QuadState:
+        """``resume`` as repeated ``step_n(chunk_iters)`` rounds; the same
+        steps and freezing as ``resume``."""
+        if chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
+        r = self.config.decide_every
+        chunk_iters = -(-chunk_iters // r) * r
+        needs_more, _ = self._needs_more_fn(decide, it_cap)
+        while bool(needs_more(state.st).any()):
+            state = self.step_n(state, chunk_iters, decide, it_cap=it_cap)
+        return state
+
+    def finalize(self, state: QuadState, decide=None) -> SolveResult:
+        """Read a :class:`SolveResult` off a (partial or completed) state;
+        ``certified`` re-evaluates ``decide`` on the banked bracket."""
+        _, resolved = self._needs_more_fn(decide)
+        st = state.st
+        certified = resolved(st)
+        return SolveResult(
+            lower=_gql.lower_bound(st), upper=_gql.upper_bound(st),
+            gauss_lower=_gql.lower_bound_gauss(st),
+            lobatto_upper=_gql.upper_bound_lobatto(st),
+            iterations=st.it, converged=st.done | certified,
+            certified=certified, state=state)
+
+    def _alloc_basis(self, st0, u: Tensor, num_rows: int) -> Tensor:
+        """Reorthogonalization storage: rows 0..num_rows-1 hold v_0..v_M."""
+        basis = torch.zeros(u.shape[:-1] + (num_rows, u.shape[-1]),
+                            dtype=u.dtype, device=u.device)
+        basis[..., 0, :] = st0.lz.v_prev   # v_0
+        basis[..., min(1, num_rows - 1), :] = st0.lz.v  # v_1
+        return basis
+
+    def tolerance_resolved(self, lower: Tensor, upper: Tensor) -> Tensor:
+        """The ``decide=None`` stopping rule: bracket gap within
+        ``atol``/``rtol`` of the lower bound."""
+        return (upper - lower) <= torch.clamp(
+            self.config.rtol * lower.abs(), min=self.config.atol)
+
+    @staticmethod
+    def threshold_decision(t, lower: Tensor, upper: Tensor) -> Tensor:
+        """Alg. 4 decision from a bracket: certified when ``t`` clears
+        [lower, upper); bracket-midpoint tie-break when it does not."""
+        return torch.where(t < lower, True,
+                           torch.where(t >= upper, False,
+                                       t < 0.5 * (lower + upper)))
+
+    def solve(self, op, u: Tensor,
+              decide: Callable[[Tensor, Tensor], Tensor] | None = None, *,
+              lam_min=None, lam_max=None, probe=None) -> SolveResult:
+        """Retrospective solve for ``u^T A^-1 u``: iterate quadrature until
+        ``decide(lower, upper)`` is True on every lane (or exhaustion);
+        ``decide=None`` brackets to ``rtol``/``atol``."""
+        state = self.init_state(op, u, lam_min=lam_min, lam_max=lam_max,
+                                probe=probe)
+        state = self.resume(state, decide)
+        return self.finalize(state, decide)
+
+    def trace(self, op, u: Tensor, num_iters: int, *, lam_min=None,
+              lam_max=None, probe=None) -> QuadratureTrace:
+        """Run exactly ``num_iters`` iterations, recording all four
+        estimate sequences (paper Fig. 1)."""
+        if num_iters < 1:
+            raise ValueError(f"num_iters must be >= 1, got {num_iters}")
+        state = self.init_state(op, u, lam_min=lam_min, lam_max=lam_max,
+                                probe=probe, basis_rows=num_iters + 1)
+        stepfn = self._stepper()
+
+        def estimates(st):
+            return (_gql.lower_bound_gauss(st), _gql.lower_bound(st),
+                    _gql.upper_bound(st), _gql.upper_bound_lobatto(st))
+
+        seqs = [estimates(state.st)]
+        st, basis, step = state.st, state.basis, state.step
+        for _ in range(num_iters - 1):
+            st, basis = self._advance(state.op, st, state.lam_min,
+                                      state.lam_max, basis, step, stepfn)
+            step = step + 1
+            seqs.append(estimates(st))
+        return QuadratureTrace(*(torch.stack(f) for f in zip(*seqs)))
+
+    # -- judges and the batched driver --------------------------------------
+
+    def judge_threshold(self, op, u: Tensor, t, *, lam_min=None,
+                        lam_max=None, probe=None) -> JudgeResult:
+        """Alg. 4 (DPPJUDGE): True iff  t < u^T A^-1 u."""
+        t = torch.as_tensor(t, dtype=u.dtype, device=u.device)
+        res = self.solve(op, u, decide=lambda lo, hi: (t < lo) | (t >= hi),
+                         lam_min=lam_min, lam_max=lam_max, probe=probe)
+        decision = self.threshold_decision(t, res.lower, res.upper)
+        return JudgeResult(decision=decision, certified=res.certified,
+                           iterations=res.iterations)
+
+    def solve_batch(self, op, u: Tensor,
+                    decide: Callable[[Tensor, Tensor], Tensor] | None = None,
+                    *, lam_min=None, lam_max=None, probe=None) -> SolveResult:
+        """Retrospective solve over K candidate systems as lockstep lanes
+        of ONE driver. ``u`` is (..., K, N); ``op`` is shared by every
+        lane, lane-batched (``stack_ops``) or stacked masks
+        (``stack_masks``). ``decide`` may reduce across lanes."""
+        if u.ndim < 2:
+            raise ValueError(
+                f"solve_batch wants (..., K, N) stacked queries, got shape "
+                f"{tuple(u.shape)}; use solve() for a single system")
+        return self.solve(op, u, decide, lam_min=lam_min, lam_max=lam_max,
+                          probe=probe)
+
+    def judge_batch(self, op, u: Tensor, t, *, lam_min=None, lam_max=None,
+                    probe=None) -> JudgeResult:
+        """K threshold judges (Alg. 4) in one batched driver:
+        ``decision[k] = t[k] < u_k^T A_k^-1 u_k`` with per-lane early
+        exit. ``t`` broadcasts against the (..., K) lane shape."""
+        if u.ndim < 2:
+            raise ValueError(
+                f"judge_batch wants (..., K, N) stacked queries, got shape "
+                f"{tuple(u.shape)}; use judge_threshold() for a single "
+                f"system")
+        return self.judge_threshold(op, u, t, lam_min=lam_min,
+                                    lam_max=lam_max, probe=probe)
+
+    def judge_argmax(self, op, u: Tensor, *, shift=None, scale=None,
+                     valid=None, prior_upper=None, prior_lower=None,
+                     lam_min=None, lam_max=None, probe=None) -> ArgmaxResult:
+        """Certified argmax over K candidate scores
+        ``shift_k + scale_k * u_k^T A_k^-1 u_k`` (greedy MAP's inner loop).
+        Lanes freeze once dominated; the loop ends when the survivor's
+        lower bound clears every rival's upper bound (or exhaustion, then
+        bracket midpoints pick with ``certified=False``)."""
+        if u.ndim < 2:
+            raise ValueError(f"judge_argmax wants (..., K, N) stacked "
+                             f"queries, got shape {tuple(u.shape)}")
+
+        def as_t(x, default):
+            return torch.as_tensor(default if x is None else x,
+                                   dtype=u.dtype, device=u.device)
+
+        shift = as_t(shift, 0.0)
+        scale = as_t(scale, 1.0)
+
+        def scores(lo, hi):
+            return _argmax_scores(lo, hi, shift, scale, valid, prior_upper,
+                                  prior_lower)
+
+        def resolved(lo, hi):
+            dominated, winner = _argmax_race(*scores(lo, hi))
+            return dominated | winner
+
+        res = self.solve_batch(op, u, decide=resolved, lam_min=lam_min,
+                               lam_max=lam_max, probe=probe)
+        slo, shi = scores(res.lower, res.upper)
+        _, winner = _argmax_race(slo, shi)
+        certified = torch.any(winner, dim=-1)
+        mid = 0.5 * (slo + shi)
+        index = torch.where(certified, _first_argmax(winner),
+                            _first_argmax(mid)).to(torch.int32)
+        return ArgmaxResult(index=index, certified=certified,
+                            iterations=res.iterations, lower=slo, upper=shi)

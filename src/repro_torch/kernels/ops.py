@@ -1,0 +1,82 @@
+"""The dispatch layer over the four hand-written kernels.
+
+Each entry point takes tensors on one device:
+
+  * on the CPU it runs the kernel's plain PyTorch version;
+  * on a CUDA device it launches the kernel (building it at first use),
+    and raises if the kernel cannot build or launch. There is no fallback
+    from a CUDA tensor to the plain version.
+
+``LAUNCHES`` counts kernel launches, one per call that launched its
+kernel (a fused step counts once, though it is a matvec launch and a
+tail launch), so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import gql_update as _gu
+from . import lanczos_step as _ls
+from . import spmv_bell as _sb
+
+LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
+            "fused_step_bell": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(x: torch.Tensor, what: str) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{what}: no kernel for device {x.device}")
+
+
+def gql_update(alpha_n, beta_n, beta_p, g, c, delta, d_lr, d_rr,
+               lam_min, lam_max):
+    """K1: batched Alg. 5 recurrence update over flat (B,) lanes."""
+    args = (alpha_n, beta_n, beta_p, g, c, delta, d_lr, d_rr, lam_min,
+            lam_max)
+    if not _on_cuda(g, "gql_update"):
+        return _gu.gql_update_plain(*args)
+    out = _gu.gql_update_cuda(*args)
+    LAUNCHES["gql_update"] += 1
+    return out
+
+
+def bell_matvec(data, cols, x):
+    """K2: blocked-ELL SpMV with f32 accumulation and output; x (N,) or
+    (L, N) with N = R * bs."""
+    if not _on_cuda(x, "bell_matvec"):
+        return _sb.bell_matvec_plain(data, cols, x)
+    out = _sb.bell_matvec_cuda(data, cols, x)
+    LAUNCHES["bell_matvec"] += 1
+    return out
+
+
+def fused_step_dense(a, s_out, s_in, t, v, v_prev, scalars, basis=None, *,
+                     shared_a: bool):
+    """K3: one fused step over (K, N) lanes with a dense A."""
+    if not _on_cuda(v, "fused_step_dense"):
+        return _ls.fused_step_dense_plain(a, s_out, s_in, t, v, v_prev,
+                                          scalars, basis, shared_a=shared_a)
+    out = _ls.fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
+                                    basis, shared_a=shared_a)
+    LAUNCHES["fused_step_dense"] += 1
+    return out
+
+
+def fused_step_bell(data, cols, s_out, s_in, t, v, v_prev, scalars):
+    """K4: one fused step over (L, R*bs) lanes with a blocked-ELL A."""
+    if not _on_cuda(v, "fused_step_bell"):
+        return _ls.fused_step_bell_plain(data, cols, s_out, s_in, t, v,
+                                         v_prev, scalars)
+    out = _ls.fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev,
+                                   scalars)
+    LAUNCHES["fused_step_bell"] += 1
+    return out
+

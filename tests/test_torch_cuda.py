@@ -1,0 +1,225 @@
+"""K1-K4 on the card: each hand-written CUDA kernel against its plain
+PyTorch version on the same tensors, at small ragged shapes (lane counts
+that are not a multiple of the lane block, N that is not a multiple of
+the row tile or the staged column chunk), with breakdown and guard lanes.
+
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports neither JAX nor the JAX package, so it runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: 1e-12 relative for the f64 kernels (FMA contraction and
+summation order), 1e-5 for the f32 paths (the K2 contract is f32
+accumulation).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import BIFSolver, Dense, bell_from_dense  # noqa: E402
+from repro_torch.kernels import gql_update as tgu  # noqa: E402
+from repro_torch.kernels import lanczos_step as tls  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spmv_bell as tsb  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _spd(n, seed, density=1.0, kappa=50.0):
+    """Seeded SPD matrix: sparse symmetric + diagonal shift, or a dense
+    one with geometric eigenvalues."""
+    rng = np.random.default_rng(seed)
+    if density < 1.0:
+        m = rng.standard_normal((n, n)) * (rng.random((n, n)) < density)
+        a = (m + m.T) / 2
+        w = np.linalg.eigvalsh(a)
+        return a + np.eye(n) * ((w[-1] - w[0]) / (kappa - 1) - w[0])
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (q * np.geomspace(1.0 / kappa, 1.0, n)) @ q.T
+
+
+def _close(got, want, rtol, what, floor=0.0):
+    """Each output within ``rtol`` of its own largest entry, or of
+    ``floor`` (1 for the unit-normalized vectors of a fused step)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+        scale = max(np.nanmax(np.abs(np.where(np.isfinite(w), w, 0.0))),
+                    floor, 1e-300)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * scale,
+                                   equal_nan=True, err_msg=f"{what}[{i}]")
+
+
+def _flat(out):
+    alpha, beta, r, raw = out
+    return [alpha, beta, r, *raw]
+
+
+def _state(op, u, lmn, lmx, steps, reorth):
+    """A mid-run state of the port's reference backend: the fused step's
+    vectors, its 8 scalar operands and the reorth basis (or None)."""
+    s = BIFSolver.create(max_iters=32, rtol=1e-12, reorth=reorth)
+    qs = s.step_n(s.init_state(op, u, lam_min=lmn, lam_max=lmx), steps)
+    g = qs.st
+    lanes = g.g.shape
+    scalars = (g.lz.beta, g.g, g.c, g.delta, g.delta_lr, g.delta_rr,
+               torch.full(lanes, lmn, dtype=g.g.dtype, device=g.g.device),
+               torch.full(lanes, lmx, dtype=g.g.dtype, device=g.g.device))
+    return g.lz.v.contiguous(), g.lz.v_prev.contiguous(), scalars, qs.basis
+
+
+def test_k1_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    b = 133                                   # a ragged tail of lanes
+    ins = [rng.uniform(0.5, 3.0, b), rng.uniform(0.0, 1.0, b),
+           rng.uniform(0.0, 1.0, b), rng.uniform(0.1, 2.0, b),
+           rng.uniform(-1.0, 1.0, b), rng.uniform(0.2, 2.0, b)]
+    ins += [ins[5] - 0.05 + rng.uniform(0.0, 0.5, b),
+            ins[5] - 4.0 - rng.uniform(0.0, 0.5, b),
+            np.full(b, 0.05), np.full(b, 4.0)]
+    ins[1][0] = 0.0                           # breakdown lane
+    ins[2][1] = 0.0
+    ins[5][2] = 0.0                           # zero pivot
+    ins[6][3], ins[7][3] = -0.1, 0.2          # wrong-sign pivots
+    xs = [torch.as_tensor(x, device=cuda) for x in ins]
+    before = ops.LAUNCHES["gql_update"]
+    got = ops.gql_update(*xs)
+    assert ops.LAUNCHES["gql_update"] == before + 1
+    assert all(g.device.type == "cuda" and g.dtype == torch.float64
+               for g in got)
+    _close(got, tgu.gql_update_plain(*xs), 1e-12, "K1 f64")
+
+
+def test_k1_f32_matches_plain_on_a_solver_state(cuda):
+    """The float instance of K1 on the recurrence inputs of a real solve
+    (random inputs put some estimates' denominators at f32 rounding
+    noise, which no f32 tolerance covers)."""
+    n, lanes = 60, 37
+    a = torch.as_tensor(_spd(n, seed=9), device=cuda)
+    w = np.linalg.eigvalsh(a.cpu().numpy())
+    u = torch.as_tensor(np.random.default_rng(9).standard_normal((lanes, n)),
+                        device=cuda)
+    s = BIFSolver.create(max_iters=32, rtol=1e-12)
+    g = s.step_n(s.init_state(Dense(a), u, lam_min=0.5 * w[0],
+                              lam_max=2.0 * w[-1]), 3).st
+    ins = [g.lz.alpha, g.lz.beta, g.lz.beta_prev, g.g, g.c, g.delta,
+           g.delta_lr, g.delta_rr, torch.full_like(g.g, 0.5 * w[0]),
+           torch.full_like(g.g, 2.0 * w[-1])]
+    xs = [x.to(torch.float32) for x in ins]
+    got = ops.gql_update(*xs)
+    assert all(x.dtype == torch.float32 for x in got)
+    _close(got, tgu.gql_update_plain(*xs), 1e-5, "K1 f32")
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("data_dtype", [torch.float32, torch.float64])
+def test_k2_matches_plain(cuda, per_lane, data_dtype):
+    rng = np.random.default_rng(2)
+    lanes, n = 3, 100
+    d_np, c_np, _ = tsb.dense_to_bell(_spd(n, seed=2, density=0.1), bs=8,
+                                      dtype=np.float64)
+    data = torch.as_tensor(d_np, dtype=data_dtype, device=cuda)
+    cols = torch.as_tensor(c_np, device=cuda)
+    if per_lane:
+        data = torch.stack([data * (1.0 + 0.1 * i) for i in range(lanes)])
+        cols = torch.stack([cols] * lanes)
+    x = torch.as_tensor(rng.standard_normal((lanes, data.shape[-4] * 8)),
+                        device=cuda)
+    before = ops.LAUNCHES["bell_matvec"]
+    got = ops.bell_matvec(data, cols, x)
+    assert ops.LAUNCHES["bell_matvec"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close([got], [tsb.bell_matvec_plain(data, cols, x)], 1e-5, "K2")
+    if not per_lane:   # one lane as a vector
+        _close([ops.bell_matvec(data, cols, x[1])],
+               [tsb.bell_matvec_plain(data, cols, x[1])], 1e-5, "K2 1-D")
+
+
+@pytest.mark.parametrize("n,lanes,reorth,kind", [
+    (37, 5, False, "plain"), (37, 5, True, "plain"),
+    (600, 11, True, "plain"), (600, 70, False, "plain"),
+    (45, 3, False, "per_lane"),
+    (45, 9, True, "masked")])
+def test_k3_matches_plain(cuda, n, lanes, reorth, kind):
+    a_np = _spd(n, seed=n)
+    rng = np.random.default_rng(n + lanes)
+    u = rng.standard_normal((lanes, n))
+    a = torch.as_tensor(a_np, device=cuda)
+    one = torch.ones((), dtype=a.dtype, device=cuda)
+    s_out, s_in, t, shared = one, one, one * 0.0, True
+    op = Dense(a)
+    if kind == "per_lane":
+        a = torch.stack([a + 0.1 * i * torch.eye(n, dtype=a.dtype,
+                                                 device=cuda)
+                         for i in range(lanes)])
+        op, shared = Dense(a), False
+    elif kind == "masked":
+        m = torch.as_tensor((rng.random((lanes, n)) < 0.7).astype(float),
+                            device=cuda)
+        from repro_torch.core import stack_masks
+        op = stack_masks(Dense(a), m)
+        s_out, s_in, t = m, m, 1.0 - m
+        u = u * m.cpu().numpy()
+    w = np.linalg.eigvalsh(a_np)
+    v, vp, sc, basis = _state(op, torch.as_tensor(u, device=cuda),
+                              0.5 * w[0], 2.0 * w[-1], 2, reorth)
+    if basis is not None:
+        basis = basis.contiguous()
+    args = (a.contiguous(), s_out, s_in, t, v, vp, sc, basis)
+    before = ops.LAUNCHES["fused_step_dense"]
+    got = ops.fused_step_dense(*args, shared_a=shared)
+    assert ops.LAUNCHES["fused_step_dense"] == before + 1
+    want = tls.fused_step_dense_plain(*args, shared_a=shared)
+    _close(_flat(got), _flat(want), 1e-12, f"K3 {kind}", floor=1.0)
+
+
+@pytest.mark.parametrize("data_dtype,vec_dtype,rtol", [
+    (torch.float32, torch.float64, 1e-12),
+    (torch.float64, torch.float64, 1e-12),
+    (torch.float32, torch.float32, 1e-5)])
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_k4_matches_plain(cuda, data_dtype, vec_dtype, rtol, per_lane):
+    n, lanes = 48, 3
+    a_np = _spd(n, seed=6, density=0.15, kappa=40.0)
+    bell = bell_from_dense(a_np, bs=8, device=cuda)
+    w = np.linalg.eigvalsh(a_np)
+    u = np.random.default_rng(6).standard_normal((lanes, n))
+    v, vp, sc, _ = _state(bell, torch.as_tensor(u, device=cuda),
+                          0.5 * w[0], 2.0 * w[-1], 2, False)
+    data, cols = bell.data.to(data_dtype), bell.cols
+    if per_lane:
+        data = torch.stack([data * (1.0 + 0.1 * i) for i in range(lanes)])
+        cols = torch.stack([cols] * lanes)
+    one = torch.ones((), dtype=vec_dtype, device=cuda)
+    args = (data.contiguous(), cols.contiguous(), one, one, one * 0.25,
+            v.to(vec_dtype), vp.to(vec_dtype),
+            tuple(s.to(vec_dtype) for s in sc))
+    before = ops.LAUNCHES["fused_step_bell"]
+    got = ops.fused_step_bell(*args)
+    assert ops.LAUNCHES["fused_step_bell"] == before + 1
+    want = tls.fused_step_bell_plain(*args)
+    _close(_flat(got), _flat(want), rtol, "K4", floor=1.0)
+
+
+def test_launchers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):      # lanes must be flat (B,)
+        ops.gql_update(x, x, x, x.reshape(2, 2), x, x, x, x, x, x)
+    a = torch.zeros(4, 4, dtype=torch.float64, device=cuda)
+    v = torch.zeros(2, 4, dtype=torch.float64, device=cuda)
+    one = torch.ones((), dtype=torch.float64, device=cuda)
+    sc = tuple(torch.zeros(2, dtype=torch.float64, device=cuda)
+               for _ in range(8))
+    with pytest.raises(ValueError):      # v_prev not contiguous
+        ops.fused_step_dense(a, one, one, one, v, v.T.contiguous().T, sc,
+                             shared_a=True)
+    with pytest.raises(ValueError):      # per-lane A of the wrong shape
+        ops.fused_step_dense(a, one, one, one, v, v, sc, shared_a=False)

@@ -1,0 +1,274 @@
+"""K1-K4: each kernel's plain PyTorch version against the JAX package's
+Pallas kernel in interpret mode, on the same seeded numpy inputs (f64,
+small sizes, ragged lane counts and lengths, breakdown lanes included),
+plus the dispatch layer's device routing.
+
+Tolerances: 1e-12 relative for the f64 kernels (summation order; the
+reference's own gemm contract, test_fused_step.py), 1e-5 for the BELL
+SpMV, whose contract is f32 accumulation. The CUDA kernels themselves
+have no CPU mode: ``tests/test_torch_cuda.py`` holds them to these plain
+versions on a card, and so does ``python3 chip_smoke.py`` at the main
+path's shapes.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import gql_update as jgu  # noqa: E402
+from repro.kernels import lanczos_step as jls  # noqa: E402
+from repro.kernels import spmv_bell as jsb  # noqa: E402
+from repro_torch.kernels import gql_update as tgu  # noqa: E402
+from repro_torch.kernels import lanczos_step as tls  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spmv_bell as tsb  # noqa: E402
+from conftest import make_spd  # noqa: E402
+
+RTOL = 1e-12
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _close(got, want, rtol=RTOL, what="", floor=0.0):
+    """Each output within ``rtol`` of its own largest entry, or of
+    ``floor`` (1 for the fused steps, whose vectors are unit-normalized:
+    the reference's rtol = atol = 1e-12 contract, test_fused_step.py)."""
+    got = [np.asarray(g) for g in got]
+    want = [np.asarray(w) for w in want]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = max(np.nanmax(np.abs(np.where(np.isfinite(w), w, 0.0))),
+                    floor, 1e-300)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * scale,
+                                   equal_nan=True, err_msg=f"{what}[{i}]")
+
+
+def _recurrence_inputs(b, seed, guards=True):
+    """Ten (B,) operands of one recurrence step; with ``guards``, lanes
+    that hit the guards: a zero beta_p, a zero pivot, and pivots of the
+    wrong sign. (Those lanes' outputs are ill-conditioned, so the fused
+    steps, whose alpha/beta differ in the last bits by summation order,
+    take only the breakdown lane.)"""
+    rng = np.random.default_rng(seed)
+    alpha = rng.uniform(0.5, 3.0, b)
+    beta_n = rng.uniform(0.0, 1.0, b)
+    beta_p = rng.uniform(0.0, 1.0, b)
+    g = rng.uniform(0.1, 2.0, b)
+    c = rng.uniform(-1.0, 1.0, b)
+    delta = rng.uniform(0.2, 2.0, b)
+    lam_min = np.full(b, 0.05)
+    lam_max = np.full(b, 4.0)
+    d_lr = delta - 0.05 + rng.uniform(0.0, 0.5, b)
+    d_rr = delta - 4.0 - rng.uniform(0.0, 0.5, b)
+    beta_n[0] = 0.0          # breakdown: Krylov space exhausted
+    if not guards:
+        return [alpha, beta_n, beta_p, g, c, delta, d_lr, d_rr, lam_min,
+                lam_max]
+    beta_p[1] = 0.0
+    delta[2] = 0.0           # guard: zero pivot
+    d_lr[3] = -0.1           # guard: wrong-sign pivots
+    d_rr[3] = 0.2
+    return [alpha, beta_n, beta_p, g, c, delta, d_lr, d_rr, lam_min, lam_max]
+
+
+@pytest.mark.parametrize("b", [1, 7, 33])
+def test_k1_gql_update_plain_matches_pallas(b):
+    ins = _recurrence_inputs(max(b, 4), seed=b)[:]
+    ins = [x[:b] for x in ins]
+    want = jgu.gql_update(*[jnp.asarray(x) for x in ins], interpret=True)
+    got = tgu.gql_update_plain(*[_t(x) for x in ins])
+    _close(got, want, what="gql_update")
+    got_ops = ops.gql_update(*[_t(x) for x in ins])
+    for g, o in zip(got, got_ops):
+        assert torch.equal(g, o)
+
+
+def test_k1_scalar_interval_broadcasts():
+    ins = _recurrence_inputs(6, seed=3)
+    lmn, lmx = 0.05, 4.0
+    want = jgu.gql_update(*[jnp.asarray(x) for x in ins[:8]], lmn, lmx,
+                          interpret=True)
+    got = tgu.gql_update_plain(*[_t(x) for x in ins[:8]], lmn, lmx)
+    _close(got, want, what="gql_update scalar interval")
+
+
+@pytest.mark.parametrize("n,bs,lanes", [(64, 8, 1), (100, 8, 3),
+                                        (37, 8, 2)])
+def test_k2_bell_matvec_plain_matches_pallas(n, bs, lanes):
+    rng = np.random.default_rng(n)
+    m = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.1)
+    a = (m + m.T) / 2
+    data, cols, _ = tsb.dense_to_bell(a, bs=bs)
+    jdata, jcols, _ = jsb.dense_to_bell(a, bs=bs)
+    np.testing.assert_array_equal(data, np.asarray(jdata))
+    np.testing.assert_array_equal(cols, np.asarray(jcols))
+    npad = data.shape[0] * bs
+    x = rng.standard_normal((lanes, npad)).astype(np.float32)
+    want = [jsb.bell_matvec(jdata, jcols, jnp.asarray(xx), interpret=True)
+            for xx in x]
+    got = tsb.bell_matvec_plain(_t(data), _t(cols), _t(x))
+    assert got.dtype == torch.float32
+    _close([got], [np.stack(want)], rtol=1e-5, what="bell_matvec")
+    assert torch.equal(ops.bell_matvec(_t(data), _t(cols), _t(x)), got)
+
+
+def test_k2_per_lane_tables():
+    """A lane-stacked table (one block table per lane) matches each
+    lane's own kernel call."""
+    rng = np.random.default_rng(9)
+    tables = []
+    for s in range(3):
+        m = rng.standard_normal((40, 40)) * (rng.random((40, 40)) < 0.15)
+        tables.append(tsb.dense_to_bell((m + m.T) / 2, bs=8, k_max=5))
+    data = np.stack([t[0] for t in tables])
+    cols = np.stack([t[1] for t in tables])
+    x = rng.standard_normal((3, 40)).astype(np.float32)
+    want = [jsb.bell_matvec(jnp.asarray(d), jnp.asarray(c), jnp.asarray(xx),
+                            interpret=True)
+            for d, c, xx in zip(data, cols, x)]
+    got = tsb.bell_matvec_plain(_t(data), _t(cols), _t(x))
+    _close([got], [np.stack(want)], rtol=1e-5, what="bell per-lane")
+
+
+def _state_inputs(op, us, steps, reorth):
+    """Fused-step operands from a real (eager) JAX run of ``steps``
+    iterations: consistent pivots and, with ``reorth``, the banked basis
+    v_0..v_{steps+1} followed by zero rows."""
+    from repro.core import gql
+    w = np.linalg.eigvalsh(_A)
+    lmn, lmx = float(w[0] * 0.5), float(w[-1] * 2.0)
+    st = gql.gql_init(op, jnp.asarray(us), lmn, lmx)
+    basis = None
+    if reorth:
+        rows = [st.lz.v_prev, st.lz.v]
+        basis = jnp.stack(rows + [jnp.zeros_like(st.lz.v)] * (steps + 1),
+                          axis=-2)
+    for i in range(steps):
+        st = gql.gql_step(op, st, lmn, lmx, basis=basis)
+        if reorth:
+            basis = basis.at[..., i + 2, :].set(st.lz.v)
+    k = us.shape[0]
+    scalars = [np.asarray(x) for x in (st.lz.beta, st.g, st.c, st.delta,
+                                       st.delta_lr, st.delta_rr)]
+    scalars += [np.full(k, lmn), np.full(k, lmx)]
+    return (np.asarray(st.lz.v), np.asarray(st.lz.v_prev), scalars,
+            None if basis is None else np.asarray(basis))
+
+
+_A = make_spd(37, kappa=50.0, seed=5)
+
+
+def _queries(k, n, seed):
+    """k seeded queries; lane 0 lies in a 2-D invariant subspace, so it
+    breaks down at its second step."""
+    rng = np.random.default_rng(seed)
+    us = rng.standard_normal((k, n))
+    _, vecs = np.linalg.eigh(_A[:n, :n]) if n == _A.shape[0] else (None, None)
+    if vecs is not None:
+        us[0] = vecs[:, 0] + 0.5 * vecs[:, -1]
+    return us
+
+
+@pytest.mark.parametrize("k,sandwich,reorth", [
+    (5, "plain", False), (5, "plain", True), (3, "shifted", False),
+    (4, "masked", True), (1, "plain", True), (3, "per_lane", False),
+    (8, "per_lane", True)])
+def test_k3_fused_step_dense_plain_matches_pallas(k, sandwich, reorth):
+    from repro.core import Dense, Masked, Shifted, stack_ops
+    n = _A.shape[0]
+    rng = np.random.default_rng(k)
+    one, zero = np.ones(()), np.zeros(())
+    s_out, s_in, t, a, shared = one, one, zero, _A, True
+    op = Dense(jnp.asarray(_A))
+    if sandwich == "shifted":
+        op, t = Shifted(op, jnp.asarray(0.3)), np.asarray(0.3)
+    elif sandwich == "masked":
+        m = (rng.random((k, n)) < 0.7).astype(np.float64)
+        op = Masked(op, jnp.asarray(m))
+        s_out, s_in, t = m, m, 1.0 - m
+    elif sandwich == "per_lane":
+        a = np.stack([_A + 0.1 * i * np.eye(n) for i in range(k)])
+        op, shared = stack_ops([Dense(jnp.asarray(x)) for x in a]), False
+    us = _queries(k, n, seed=k)
+    if sandwich == "masked":
+        us = us * s_out
+    v, vp, sc, basis = _state_inputs(op, us, 2, reorth)
+    vec = [np.broadcast_to(x, (k, n)) for x in (s_out, s_in, t)]
+    j = jls.fused_step_dense(
+        jnp.asarray(a), *[jnp.asarray(x) for x in vec], jnp.asarray(v),
+        jnp.asarray(vp), tuple(jnp.asarray(s) for s in sc),
+        None if basis is None else jnp.asarray(basis), shared_a=shared,
+        interpret=True)
+    args = (_t(a), *[_t(x) for x in vec], _t(v), _t(vp),
+            tuple(_t(s) for s in sc), None if basis is None else _t(basis))
+    got = tls.fused_step_dense_plain(*args, shared_a=shared)
+    _close([got[0], got[1], got[2], *got[3]], [j[0], j[1], j[2], *j[3]],
+           what="fused_step_dense", floor=1.0)
+    via_ops = ops.fused_step_dense(*args, shared_a=shared)
+    assert torch.equal(via_ops[2], got[2])
+
+
+@pytest.mark.parametrize("lanes,masked", [(3, False), (2, True)])
+def test_k4_fused_step_bell_plain_matches_pallas(lanes, masked):
+    from repro.core import Masked, bell_from_dense
+    n = _A.shape[0]
+    rng = np.random.default_rng(lanes)
+    data, cols, _ = tsb.dense_to_bell(_A, bs=8, dtype=np.float32)
+    npad = data.shape[0] * 8
+    op = bell_from_dense(_A, bs=8, dtype=np.float32)
+    s = np.ones((lanes, n))
+    t = np.zeros((lanes, n))
+    if masked:
+        s = (rng.random((lanes, n)) < 0.7).astype(np.float64)
+        t = 1.0 - s
+        op = Masked(op, jnp.asarray(s))
+    us = _queries(lanes, n, seed=lanes + 10) * (s if masked else 1.0)
+    v, vp, scalars, _ = _state_inputs(op, us, 2, False)
+
+    def pad(x):
+        return np.pad(x, ((0, 0), (0, npad - n)))
+
+    vecs = [pad(x) for x in (s, s, t, v, vp)]
+    step = jax.vmap(lambda so, si, tt, vv, vvp, s8: jls.fused_step_bell(
+        jnp.asarray(data), jnp.asarray(cols), so, si, tt, vv, vvp, s8,
+        interpret=True))
+    j = step(*[jnp.asarray(x) for x in vecs],
+             tuple(jnp.asarray(x)[:, None] for x in scalars))
+    got = tls.fused_step_bell_plain(_t(data), _t(cols),
+                                    *[_t(x) for x in vecs],
+                                    tuple(_t(x) for x in scalars))
+    want = [np.asarray(j[0]).reshape(-1), np.asarray(j[1]).reshape(-1),
+            j[2], *[np.asarray(x).reshape(-1) for x in j[3]]]
+    _close([got[0], got[1], got[2], *got[3]], want, what="fused_step_bell", floor=1.0)
+
+
+def test_ops_rejects_unknown_devices():
+    x = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.gql_update(*([x] * 10))
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    """The CUDA launchers take CUDA tensors only; a CPU tensor reaches
+    the plain version through ``ops`` and nowhere else."""
+    ins = [_t(x) for x in _recurrence_inputs(4, seed=1)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tgu.gql_update_cuda(*ins)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsb.bell_matvec_cuda(torch.zeros(1, 1, 8, 8),
+                             torch.zeros(1, 1, dtype=torch.int32),
+                             torch.zeros(8))
+    v = torch.zeros(2, 8, dtype=torch.float64)
+    one = torch.ones((), dtype=torch.float64)
+    sc = (torch.zeros(2, dtype=torch.float64),) * 8
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.fused_step_dense_cuda(torch.zeros(8, 8, dtype=torch.float64),
+                                  one, one, one, v, v, sc, shared_a=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.fused_step_bell_cuda(torch.zeros(1, 1, 8, 8),
+                                 torch.zeros(1, 1, dtype=torch.int32),
+                                 one, one, one, v, v, sc)
