@@ -6,8 +6,8 @@
 It runs every phase, in order, each printing one JSON line:
 
   1. device   -- the card's name and power limit (nvidia-smi), TF32 flags;
-  2. build    -- nvcc builds the four kernels from ``csrc/`` (seconds);
-  3. kernels  -- K1-K4 at the main path's shapes: each kernel against its
+  2. build    -- nvcc builds the kernels from ``csrc/`` (seconds);
+  3. kernels  -- K1-K5 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
                  the least time the card could take (bound);
@@ -18,8 +18,14 @@ It runs every phase, in order, each printing one JSON line:
                  blocked-ELL bs = 128, f32 data, K = 64 lanes of f64
                  queries: solve_batch on the fused (K4) and pallas (K2 +
                  K1) backends, judge_batch (fused);
-  6. coo      -- two SparseCOO matvecs on the card give identical bits;
-  7. profile  -- each path call again, warm: host seconds beside the
+  6. trace    -- bracketed logdet of the sparse operator (f32 blocks, f64
+                 probes): logdet_quad with 512 Rademacher probes as 64
+                 block lanes of 8 (block-Krylov, K5 on 'pallas'; again on
+                 'reference'), and with 64 scalar probes on 'fused' (K4
+                 and the matrix-function eigensolve); every lane's
+                 bracket holds its tr Z^T log(A) Z from a dense eigh;
+  7. coo      -- two SparseCOO matvecs on the card give identical bits;
+  8. profile  -- each path call again, warm: host seconds beside the
                  device time of every kernel it launched (torch.profiler),
                  so the card's idle share is 1 - device / host.
 
@@ -32,6 +38,7 @@ to the CPU. The last line is the device contract line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,8 +52,10 @@ try:
 except ImportError:  # no PyTorch at all: nothing to drive
     torch = None
 
-PHASES = ("device", "build", "kernels", "dense", "sparse", "coo", "profile")
-KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell")
+PHASES = ("device", "build", "kernels", "dense", "sparse", "trace", "coo",
+          "profile")
+KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
+           "bell_matvec_mrhs")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # dense flops/s for each type. f64 is the FP64 tensor-core rate, the
@@ -61,6 +70,16 @@ SEED = 0
 # certifies before the cap (the path phases assert it).
 DENSE = dict(max_iters=160, rtol=1e-6)
 SPARSE = dict(max_iters=384, rtol=1e-3)
+# The logdet of the sparse operator (trace phase). The caps come from a
+# CPU rehearsal of this phase at N = 8192 on the plain path (the recipe
+# in .claude/skills/verify/SKILL.md): at a cadence of 8 (a lane stops at
+# 1 + 8k iterations) every block lane certified at 49 iterations and
+# every scalar lane by 57, below the caps. The bracket's eigensolve,
+# whose size the cap sets, runs once per round; its time is in the
+# profile phase (PERF.md).
+PROBES, BLOCK, SCALAR_PROBES = 512, 8, 64
+TRACE_BLOCK = dict(max_iters=64, rtol=1e-3, decide_every=8)
+TRACE_SCALAR = dict(max_iters=96, rtol=1e-3, decide_every=8)
 
 
 def emit(obj) -> None:
@@ -92,25 +111,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_kernels(fn) -> dict:
     """For one call of ``fn``: each CUDA kernel it launched, by name, with
-    its device milliseconds and its number of launches (torch.profiler)."""
+    its device milliseconds and its number of launches (torch.profiler,
+    device activity only). The raw device events are summed directly:
+    a call of the batched eigensolver launches some 10^5 kernels, and
+    building the profiler's event tree over them took longer than the
+    call itself."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.key.replace("void ", "").replace(
+        name = e.name().replace("void ", "").replace(
             "(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
         ms, count = out.get(name, (0.0, 0))
-        out[name] = (ms + us / 1e3, count + e.count)
+        out[name] = (ms + e.duration_ns() / 1e6, count + 1)
     return out
 
 
@@ -166,12 +185,14 @@ class Smoke:
         self.path_calls = []  # (iterations, launches) of each path call
         self.dense = None     # shared problem data between phases
         self.sparse = None
+        self.setup_s = {}     # seconds of the problems' set-up steps
 
     # -- problems --------------------------------------------------------
 
     def dense_problem(self):
         if self.dense is None:
             from repro_torch.data import rbf_kernel
+            t0 = time.perf_counter()
             # The truncated RBF kernel is indefinite at this N with the
             # default 1e-3 ridge (its lowest eigenvalue is below zero);
             # the repo's own DPP example sizes the ridge at 0.05 to cover
@@ -186,28 +207,61 @@ class Smoke:
                                 device=self.dev)
             self.dense = dict(a=a, u=u, lmn=0.9 * lam_lo, lmx=1.1 * lam_hi,
                               lam=(lam_lo, lam_hi))
+            self.setup_s["dense problem"] = time.perf_counter() - t0
         return self.dense
 
     def sparse_problem(self):
         if self.sparse is None:
             from repro_torch.core import bell_from_dense
             from repro_torch.data import graph_laplacian
+            t_s = time.perf_counter()
             lap = graph_laplacian(8192, mean_degree=12, rewire=0.0, seed=SEED)
             bell = bell_from_dense(lap, bs=128, dtype=np.float32,
                                    device=self.dev)
-            # the operator the f32 blocks hold, exactly, in f64
+            # the operator the f32 blocks hold, exactly, in f64, and its
+            # eigenpairs (the trace phase's truths)
             a32 = torch.as_tensor(lap.astype(np.float32).astype(np.float64),
                                   device=self.dev)
-            w = torch.linalg.eigvalsh(a32)
+            t0 = time.perf_counter()
+            w, v = torch.linalg.eigh(a32)
             lam_lo, lam_hi = w[0].item(), w[-1].item()
+            self.setup_s["sparse eigh"] = time.perf_counter() - t0
             assert lam_lo > 0, f"sparse operator not SPD: {lam_lo}"
             rng = np.random.default_rng(SEED + 2)
             u = torch.as_tensor(rng.standard_normal((K, lap.shape[0])),
                                 device=self.dev)
-            self.sparse = dict(lap=lap, bell=bell, a32=a32, u=u,
+            self.sparse = dict(lap=lap, bell=bell, a32=a32, u=u, w=w, v=v,
                                lmn=0.9 * lam_lo, lmx=1.1 * lam_hi,
                                lam=(lam_lo, lam_hi))
+            self.setup_s["sparse problem"] = time.perf_counter() - t_s
         return self.sparse
+
+    def trace_problem(self):
+        """The sparse operator for the logdet: its f32 blocks with the
+        diagonal held in f64, so the probes and Krylov vectors are f64
+        (trace_quad draws probes in the diagonal's dtype); the probes of
+        the Hutchinson stream of key SEED, drawn again for the truths;
+        each probe's z^T log(A32) z from the eigenpairs; and the
+        Cholesky logdet of A32."""
+        sp = self.sparse_problem()
+        if "trace_op" not in sp:
+            from repro_torch.core.trace import rademacher_probe
+            t0 = time.perf_counter()
+            bell = sp["bell"]
+            sp["trace_op"] = dataclasses.replace(
+                bell, diag_vals=bell.diag_vals.to(torch.float64))
+            z = torch.stack([rademacher_probe(SEED, i, bell.n)
+                             for i in range(PROBES)]).to(self.dev)
+            # per-probe truths z^T log(A32) z, from the eigenpairs
+            c = z @ sp["v"]
+            sp["probe_truth"] = torch.sum(c * c * torch.log(sp["w"]), dim=-1)
+            sp["z"] = z
+            chol = torch.linalg.cholesky(sp["a32"])
+            sp["logdet"] = float(2.0 * torch.sum(torch.log(torch.diagonal(
+                chol))))
+            self.setup_s["trace probes and truths"] = \
+                time.perf_counter() - t0
+        return sp
 
     # -- phases ----------------------------------------------------------
 
@@ -240,15 +294,25 @@ class Smoke:
     def _kernel_line(self, name, route_src, replaces, got, want, tol, why,
                      kernel_ms, plain_ms, bound_ms, bound_by, library_ms,
                      fn, library_note=None):
+        """One kernels line; ``library_ms`` may be a thunk, timed after the
+        kernel's own profile (a library call that runs Triton kernels
+        leaves the next profile of the process empty)."""
         abs_err, rel_err = errors(got, want)
+        per_call = sum(c for _, c in device_kernels(fn).values())
+        t_lib = time.perf_counter()
+        if callable(library_ms):
+            library_ms = library_ms()
+        t_lib = time.perf_counter() - t_lib
         line = {"phase": "kernels", "name": name, "max_abs_err": abs_err,
                 "max_rel_err": rel_err, "tolerance": tol, "reason": why,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 # device kernels that one call of the wrapper launches
-                "cuda_kernels_per_call": sum(
-                    c for _, c in device_kernels(fn).values())}
+                "cuda_kernels_per_call": per_call,
+                # wall seconds of the library timing, its first call
+                # (a Triton build for BSR @ dense at 512 columns) included
+                "library_timing_s": t_lib}
         if library_note:
             line["library_covers"] = library_note
         emit(line)
@@ -390,6 +454,26 @@ class Smoke:
             cuda_ms(lambda: torch.matmul(bsr64, xt64)),
             lambda: ops.fused_step_bell(*bargs),
             "the SpMV (BSR @ dense in f64, 64 right-hand sides)")
+        # K5 on the block path's operands: the shared table and 64 block
+        # lanes of 8 probe rows (f64, as the block recurrence hands them
+        # over; the wrapper rounds them to f32 once)
+        tp = self.trace_problem()
+        xb = (tp["z"] / bell.n ** 0.5).reshape(PROBES // BLOCK, BLOCK, -1)
+        got = [ops.bell_matvec_mrhs(bell.data, bell.cols, xb)]
+        want = [sb.bell_matvec_mrhs_plain(bell.data, bell.cols, xb)]
+        nb = nbytes(bell.data, bell.cols, xb) + nbytes(*got)
+        bms, bby = bound(nb, 2 * PROBES * nnz, torch.float32)
+        xt5 = xb.reshape(PROBES, -1).to(torch.float32).T.contiguous()
+        self._kernel_line(
+            "bell_matvec_mrhs", "src/repro_torch/kernels/csrc/bell_mrhs.cu",
+            "src/repro/kernels/spmv_bell.py:73", got, want, 1e-5,
+            "f32 accumulation (the kernel's contract) in another order",
+            cuda_ms(lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb)),
+            cuda_ms(lambda: sb.bell_matvec_mrhs_plain(bell.data, bell.cols,
+                                                      xb)),
+            bms, bby, lambda: cuda_ms(lambda: torch.matmul(bsr32, xt5)),
+            lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb),
+            "the SpMM (BSR @ dense, f32, 512 right-hand sides)")
         emit({"phase": "kernels", "ported": sorted(self.kernels)})
         assert sorted(self.kernels) == sorted(KERNELS)
 
@@ -468,11 +552,14 @@ class Smoke:
 
     def path_call(self, fn):
         """One call of the main path, timed; records how many iterations
-        it ran and how many times it launched each kernel."""
+        it ran (its longest lane's) and how many times it launched each
+        kernel."""
         from repro_torch.kernels import LAUNCHES
         before = dict(LAUNCHES)
         out, seconds = self.run_timed(fn)
-        self.path_calls.append((int(out.iterations.max()), {
+        its = out.state.iterations if hasattr(out, "std_error") \
+            else out.iterations
+        self.path_calls.append((int(its.max()), {
             k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
         return out, seconds
 
@@ -631,6 +718,102 @@ class Smoke:
         assert launches["bell_matvec"] > 0 and launches["gql_update"] > 0
         self._count(launches)
 
+    def phase_trace(self):
+        """Bracketed logdet of the sparse operator, the block-Krylov path:
+        512 probes as 64 block lanes of 8 on 'pallas' (K5 once at init and
+        once per block step, for all lanes together) and on 'reference'
+        (f64 SpMM), then 64 scalar probes on 'fused' (K4 and the
+        matrix-function eigensolve). Every lane certifies before its cap,
+        and every lane's bracket holds its truth."""
+        from repro_torch.core import BIFSolver, logdet_quad
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        tp = self.trace_problem()
+        op = tp["trace_op"]
+        iv = dict(lam_min=tp["lmn"], lam_max=tp["lmx"], key=SEED)
+        lanes = PROBES // BLOCK
+        block_truth = tp["probe_truth"].reshape(lanes, BLOCK).sum(-1).cpu()
+        scalar_truth = tp["probe_truth"][:SCALAR_PROBES].cpu()
+
+        def block(backend):
+            return lambda: logdet_quad(
+                op, PROBES, block_size=BLOCK, solver=BIFSolver.create(
+                    backend=backend, **TRACE_BLOCK), **iv)
+
+        reset_launches()
+        res_p, t_p = self.path_call(block("pallas"))
+        k5 = LAUNCHES["bell_matvec_mrhs"]
+        res_f, t_f = self.path_call(lambda: logdet_quad(
+            op, SCALAR_PROBES, block_size=1, solver=BIFSolver.create(
+                backend="fused", **TRACE_SCALAR), **iv))
+        launches = dict(LAUNCHES)
+        res_r, t_r = self.run_timed(block("reference"))
+
+        # Slack of the f32 SpMM (K5's contract): the bracket is that of
+        # the operator perturbed at f32 roundoff, E with |E| <= 2^-24 |A|
+        # (relative, per product). The Frechet derivative of log has norm
+        # 1/lambda_min, so z^T log(A) z moves by at most |z|^2 2^-24
+        # lambda_max / lambda_min, which relative to |z^T log(A) z|
+        # (|z|^2 times a mean log eigenvalue above 1 here) is below
+        # kappa * 2^-24, kappa that of [lam_min, lam_max]. The two
+        # backends' certified brackets then differ by at most their width
+        # (rtol) plus that slack.
+        kappa = tp["lmx"] / tp["lmn"]
+        f32_slack = kappa * 2.0 ** -24
+
+        def lane_view(res, truth, slack, cap, what):
+            lo = torch.as_tensor(res.state.probe_lower)
+            hi = torch.as_tensor(res.state.probe_upper)
+            it = torch.as_tensor(res.state.iterations)
+            cert = (hi - lo) <= cap["rtol"] * lo.abs()
+            miss = torch.maximum(lo - truth, truth - hi) / truth.abs()
+            se = res.std_error
+            out = {"lanes": int(lo.numel()), "max_iters": cap["max_iters"],
+                   "decide_every": cap["decide_every"],
+                   "iterations_max": int(it.max()),
+                   "iterations_mean": float(it.double().mean()),
+                   "certified": int(cert.sum()),
+                   "brackets_contain_truth": contains(lo, hi, truth, slack),
+                   "max_rel_gap": float(((hi - lo) / truth.abs()).max()),
+                   "max_rel_miss": float(miss.max()), "slack": slack,
+                   "estimate": res.estimate, "std_error": se,
+                   "bracket": [res.lower, res.upper],
+                   "logdet": tp["logdet"],
+                   "abs_err_over_se": abs(res.estimate - tp["logdet"]) / se}
+            assert out["brackets_contain_truth"], f"{what}: bracket misses"
+            assert out["certified"] == out["lanes"], f"{what}: uncertified"
+            assert out["iterations_max"] < cap["max_iters"], \
+                f"{what}: ran to the cap"
+            return out, lo, hi, it
+
+        line_p, lo_p, hi_p, it_p = lane_view(res_p, block_truth, f32_slack,
+                                             TRACE_BLOCK, "block pallas")
+        line_r, lo_r, hi_r, it_r = lane_view(res_r, block_truth, 1e-9,
+                                             TRACE_BLOCK, "block reference")
+        line_f, _, _, _ = lane_view(res_f, scalar_truth, 1e-9, TRACE_SCALAR,
+                                    "scalar fused")
+        cmp_slack = TRACE_BLOCK["rtol"] + f32_slack
+        diff = torch.maximum((lo_p - lo_r).abs(), (hi_p - hi_r).abs()) \
+            / block_truth.abs()
+        line_p.update(
+            k5_launches=k5, steps=int(it_p.max()) - 1,
+            vs_reference={"max_rel_bracket_diff": float(diff.max()),
+                          "slack": cmp_slack,
+                          "max_iter_diff": int((it_p - it_r).abs().max())})
+        emit({"phase": "trace", "n": int(op.n), "probes": PROBES,
+              "block_size": BLOCK, "lambda": tp["lam"],
+              "block_pallas": line_p, "block_reference": line_r,
+              "scalar_fused": line_f,
+              "seconds": {"block_pallas": t_p, "block_reference": t_r,
+                          "scalar_fused": t_f},
+              "launches": launches})
+        # K5: once at block_init, then once per block step of the driver;
+        # every lane certifies before the cap, so the longest lane steps
+        # in every round and the steps are its iterations less one
+        assert k5 == 1 + line_p["steps"], f"K5 launched {k5} times"
+        assert float(diff.max()) <= cmp_slack, "backends' brackets differ"
+        assert launches["fused_step_bell"] > 0
+        self._count(launches)
+
     def phase_coo(self):
         from repro_torch.core import sparse_from_dense
         sp = self.sparse_problem()
@@ -668,21 +851,40 @@ class Smoke:
             s = BIFSolver.create(**SPARSE, backend=backend)
             return lambda: s.solve_batch(sp["bell"], sp["u"], **siv)
 
+        tp = self.trace_problem()
+        tiv = dict(lam_min=tp["lmn"], lam_max=tp["lmx"], key=SEED)
+
+        def logdet(backend, probes, b, cap):
+            from repro_torch.core import logdet_quad
+            s = BIFSolver.create(backend=backend, **cap)
+            return lambda: logdet_quad(tp["trace_op"], probes, block_size=b,
+                                       solver=s, **tiv)
+
         calls = {"dense solve_batch fused reorth": dense("fused",
                                                          reorth=True),
                  "dense solve_batch pallas": dense("pallas"),
                  "sparse solve_batch fused": sparse("fused"),
-                 "sparse solve_batch pallas": sparse("pallas")}
+                 "sparse solve_batch pallas": sparse("pallas"),
+                 "trace logdet_quad block pallas": logdet(
+                     "pallas", PROBES, BLOCK, TRACE_BLOCK),
+                 "trace logdet_quad scalar fused": logdet(
+                     "fused", SCALAR_PROBES, 1, TRACE_SCALAR)}
         for what, fn in calls.items():
-            fn()
+            if not what.startswith("trace"):   # the trace phase warmed these
+                fn()
             res, host_s = self.run_timed(fn)
+            t0 = time.perf_counter()
             kernels = {k: ms for k, (ms, _) in device_kernels(fn).items()}
+            prof_s = time.perf_counter() - t0
             dev_s = sum(kernels.values()) / 1e3
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+            its = res.state.iterations if hasattr(res, "std_error") \
+                else res.iterations
             emit({"phase": "profile", "call": what,
-                  "iterations_max": int(res.iterations.max()),
+                  "iterations_max": int(its.max()),
                   "host_s": host_s, "device_s": dev_s,
                   "idle_share": 1.0 - dev_s / host_s,
+                  "profiled_call_s": prof_s,
                   "kernels_ms": dict(top)})
 
     def _count(self, launches):
@@ -712,15 +914,19 @@ def main() -> int:
     torch.cuda.set_device(dev)
     smoke = Smoke(repro_torch, dev)
     t0 = time.perf_counter()
+    phase_s = {}
     for p in PHASES:
+        t_p = time.perf_counter()
         getattr(smoke, f"phase_{p}")()
+        phase_s[p] = time.perf_counter() - t_p
     for name, entry in smoke.kernels.items():
         entry["launches"] = smoke.launches[name]
         entry["launches_per_iteration"] = smoke.per_iteration(name)
     missing = [k for k in KERNELS if smoke.launches.get(k, 0) == 0]
     assert not missing, f"the path phases never launched {missing}"
     print(nvidia_smi(), flush=True)
-    emit({"seconds": time.perf_counter() - t0})
+    emit({"seconds": time.perf_counter() - t0, "phases": phase_s,
+          "set_up": smoke.setup_s})
     emit({"kernels": [smoke.kernels[k] for k in sorted(smoke.kernels)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,23 @@
 
 ``operator_from_numpy`` and ``state_from_numpy`` take numpy arrays and
 Python metadata (the leaves of an operator or of a
-``GQLState``/``LanczosState``/``QuadState``) and return the port's
+``GQLState``/``LanczosState``/``CoeffHistory``/``BlockState``/
+``QuadState``) and return the port's
 operator or state on ``device``. Whoever holds another package's arrays
 converts them to numpy first, so this module never sees them; it is what
 lets a parity test start two implementations from identical states.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .core import block as _block
 from .core import gql as _gql
 from .core import lanczos as _lz
+from .core import matfun as _matfun
 from .core import operators as _ops
 from .core import solver as _solver
 
@@ -66,11 +71,16 @@ def operator_from_numpy(kind: str, leaves: dict, *, device="cuda"):
     return _ops.Jacobi(base, _t(leaves["inv_sqrt_diag"], dev))
 
 
+def _fields(cls) -> set:
+    return {f.name for f in dataclasses.fields(cls)}
+
+
 def state_from_numpy(fields: dict, *, device="cuda"):
-    """Build a ``LanczosState``, ``GQLState`` or ``QuadState`` from a dict
-    of numpy fields, picked by its keys. Nested states (``GQLState.lz``,
-    ``QuadState.st``) are dicts or already-built states; ``QuadState.op``
-    is a port operator or a ``(kind, leaves)`` pair."""
+    """Build a ``LanczosState``, ``GQLState``, ``CoeffHistory``,
+    ``BlockState`` or ``QuadState`` from a dict of numpy fields, picked by
+    its keys. Nested states (``GQLState.lz``, ``QuadState.st``,
+    ``QuadState.coeffs``) are dicts or already-built states;
+    ``QuadState.op`` is a port operator or a ``(kind, leaves)`` pair."""
     dev = _ops.resolve_device(device)
     keys = set(fields)
 
@@ -82,18 +92,22 @@ def state_from_numpy(fields: dict, *, device="cuda"):
     if keys == set(_gql.GQLState._fields):
         vals = {k: _t(v, dev) for k, v in fields.items() if k != "lz"}
         return _gql.GQLState(lz=sub(fields["lz"]), **vals)
+    if keys == _fields(_matfun.CoeffHistory):
+        return _matfun.CoeffHistory(**{k: _t(v, dev)
+                                       for k, v in fields.items()})
+    if keys == _fields(_block.BlockState):
+        return _block.BlockState(**{k: _t(v, dev)
+                                    for k, v in fields.items()})
     if keys <= set(_solver.QuadState._fields) and \
             {"op", "st", "lam_min", "lam_max", "basis", "step"} <= keys:
-        if fields.get("coeffs") is not None:
-            raise NotImplementedError("matrix-function states (coeffs) are "
-                                      "a later slice of the port")
         op = fields["op"]
         if isinstance(op, tuple):
             op = operator_from_numpy(*op, device=dev)
+        coeffs = fields.get("coeffs")
         return _solver.QuadState(
             op=op, st=sub(fields["st"]), lam_min=_t(fields["lam_min"], dev),
             lam_max=_t(fields["lam_max"], dev),
             basis=_t(fields["basis"], dev), step=_t(fields["step"], dev),
-            coeffs=None)
+            coeffs=None if coeffs is None else sub(coeffs))
     raise ValueError(f"fields {sorted(keys)} match no LanczosState, "
-                     f"GQLState or QuadState")
+                     f"GQLState, CoeffHistory, BlockState or QuadState")

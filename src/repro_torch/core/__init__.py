@@ -1,25 +1,34 @@
 """Paper core, PyTorch port: Gauss-type quadrature bounds for bilinear
-inverse forms, driven by the retrospective solver (paper Alg. 2)::
+forms ``u^T f(A) u``, driven by the retrospective solver (paper Alg. 2)::
 
-    from repro_torch.core import BIFSolver, Dense
+    from repro_torch.core import BIFSolver, Dense, logdet_quad
 
     solver = BIFSolver.create(max_iters=64, rtol=1e-3, backend="fused")
     res = solver.solve_batch(Dense(a), us, lam_min=lmn, lam_max=lmx)
+    ld = logdet_quad(op, 512, block_size=8, lam_min=lmn, lam_max=lmx)
 
 Public names follow ``repro.core``: solver.{BIFSolver, SolverConfig,
-SolveResult, JudgeResult, ArgmaxResult, QuadratureTrace, QuadState},
-operators.{Dense, SparseCOO, SparseBELL, Masked, Shifted, Jacobi,
-MatvecFn, stack_ops, stack_masks, bell_from_dense, sparse_from_dense},
-gql.{gql_init, gql_step, GQLState}, spectrum.{lanczos_extremal,
-gershgorin_bounds, ridge_bounds}, loop_utils.tree_freeze and
-bounds.{bif_bounds_trace, BIFTrace, BIFBounds}.
+SolveResult, JudgeResult, ArgmaxResult, QuadratureTrace, QuadState,
+PairState},
+matfun.{REGISTRY, SpectralFn, CoeffHistory}, block.{BlockState,
+block_init, block_step}, trace.{trace_quad, logdet_quad,
+TraceQuadResult, TraceQuadState}, operators.{Dense, SparseCOO,
+SparseBELL, Masked, Shifted, Jacobi, MatvecFn, stack_ops, stack_masks,
+bell_from_dense, sparse_from_dense, matvec_mrhs}, gql.{gql_init,
+gql_step, GQLState}, spectrum.{lanczos_extremal, gershgorin_bounds,
+ridge_bounds}, loop_utils.tree_freeze and bounds.{bif_bounds_trace,
+BIFTrace, BIFBounds}.
 """
-from . import bounds, gql, lanczos, loop_utils, operators, solver, \
-    spectrum  # noqa: F401
+from . import block, bounds, gql, lanczos, loop_utils, matfun, \
+    operators, solver, spectrum, trace  # noqa: F401
 
-from .solver import ArgmaxResult, BIFSolver, JudgeResult, \
+from .solver import ArgmaxResult, BIFSolver, JudgeResult, PairState, \
     QuadratureTrace, QuadState, SolveResult, SolverConfig  # noqa: F401
+from .block import BlockState  # noqa: F401
 from .loop_utils import tree_freeze  # noqa: F401
+from .matfun import CoeffHistory, SpectralFn  # noqa: F401
+from .trace import TraceQuadResult, TraceQuadState, logdet_quad, \
+    trace_quad  # noqa: F401
 from .operators import Dense, Jacobi, Masked, MatvecFn, Shifted, \
     SparseBELL, SparseCOO, bell_from_dense, sparse_from_dense, \
     stack_masks, stack_ops  # noqa: F401

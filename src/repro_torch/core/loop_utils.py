@@ -7,16 +7,19 @@ rule (counterpart of ``repro.core.loop_utils.tree_freeze``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 
 def tree_freeze(new, old, frozen: torch.Tensor):
     """Select ``old`` leaves wherever ``frozen`` is True, else ``new``.
 
-    ``new``/``old`` are tensors, ``None`` or (named) tuples of them with
-    the same structure. ``frozen`` is a bool tensor over the lane dims;
-    each leaf may carry extra trailing dims (e.g. Lanczos vectors of shape
-    (..., N)), broadcast by appending singleton axes.
+    ``new``/``old`` are tensors, ``None``, (named) tuples or frozen
+    dataclasses of them with the same structure. ``frozen`` is a bool
+    tensor over the lane dims; each leaf may carry extra trailing dims
+    (e.g. Lanczos vectors of shape (..., N)), broadcast by appending
+    singleton axes.
     """
     if new is None:
         return None
@@ -27,4 +30,9 @@ def tree_freeze(new, old, frozen: torch.Tensor):
         leaves = [tree_freeze(n, o, frozen) for n, o in zip(new, old)]
         return type(new)(*leaves) if hasattr(new, "_fields") \
             else tuple(leaves)
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(new, **{
+            f.name: tree_freeze(getattr(new, f.name), getattr(old, f.name),
+                                frozen)
+            for f in dataclasses.fields(new) if f.init})
     raise TypeError(f"tree_freeze: unsupported leaf type {type(new).__name__}")

@@ -14,6 +14,7 @@ one device; the solver computes there.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -388,6 +389,90 @@ def op_device(op) -> torch.device:
     if isinstance(op, MatvecFn):
         return op.diag_vals.device
     raise TypeError(f"not an operator: {type(op).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Multi-vector right-hand sides (block-Krylov mode)
+
+
+def matvec_mrhs(op, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ X for a row-stacked block X of shape (..., b, N). Row i of
+    the output is ``op.matvec`` of row i of ``x``, shaped so Dense and
+    BELL operators see ONE product over all b rows instead of b matvecs.
+    Leading dims of ``x`` before the block axis are lanes and pair with
+    lane-stacked operator fields as in ``matvec``; the block axis is
+    local to each lane."""
+    if isinstance(op, Dense):
+        # lanes broadcast against op.a's batch dims; b rides the product
+        return torch.einsum("...ij,...bj->...bi", op.a, x)
+    if isinstance(op, SparseCOO):
+        if op.rows.ndim == 1:
+            return op.matvec(x)  # a shared pattern broadcasts over (..., b)
+        return _coo_block_axis(op).matvec(x)
+    if isinstance(op, SparseBELL):
+        return _bell_mrhs(op, x)
+    if isinstance(op, Masked):
+        m = op.mask.to(x.dtype)
+        mb = m[..., None, :] if m.ndim > 1 else m
+        return mb * matvec_mrhs(op.base, mb * x) + (1.0 - mb) * x
+    if isinstance(op, Shifted):
+        s = torch.as_tensor(op.sigma)
+        sb = s[..., None, None] if s.ndim else s
+        return matvec_mrhs(op.base, x) + sb * x
+    if isinstance(op, Jacobi):
+        c = op.inv_sqrt_diag
+        cb = c[..., None, :] if c.ndim > 1 else c
+        return cb * matvec_mrhs(op.base, cb * x)
+    # MatvecFn: closures take (..., N) batches, the block axis is one more
+    return op.matvec(x)
+
+
+def _coo_block_axis(op: SparseCOO) -> SparseCOO:
+    """A lane-stacked COO operator with a length-1 block axis on every
+    per-lane field (the slot table included, so nothing is re-sorted),
+    so its gather broadcasts over the (..., b, N) block rows."""
+    out = copy.copy(op)
+    for name in ("rows", "cols", "vals", "diag_vals"):
+        object.__setattr__(out, name, getattr(op, name)[..., None, :])
+    object.__setattr__(out, "ell", op.ell[..., None, :, :])
+    return out
+
+
+def _bell_mrhs(op: SparseBELL, x: torch.Tensor) -> torch.Tensor:
+    """Blocked-ELL SpMM over (..., b, N) row stacks. 'reference' is the
+    plain gather in x's dtype; 'pallas' runs kernel K5 (its plain version
+    on CPU tensors) with f32 accumulation, and the result is cast back to
+    x's dtype. x is zero-padded to R*bs and the result sliced back."""
+    from ..kernels import spmv_bell as _sb
+    r, _, bs, _ = op.data.shape[-4:]
+    npad = r * bs
+    pad = npad - x.shape[-1]
+    xp = F.pad(x, (0, pad)) if pad else x
+    if op.mode == "reference":
+        if op.cols.ndim == 2:
+            y = _sb.bell_matvec_ref(op.data, op.cols, xp)
+        else:
+            y = _sb.bell_matvec_ref(op.data[..., None, :, :, :, :],
+                                    op.cols[..., None, :, :], xp)
+    else:
+        from ..kernels import ops as _kops
+        if op.interpret and op.data.device.type == "cuda":
+            raise ValueError("interpret=True has no meaning for CUDA "
+                             "tensors: there is no interpret mode on the "
+                             "card")
+        b = xp.shape[-2]
+        lanes = _broadcast_shape(op.data.shape[:-4], xp.shape[:-2])
+        xb = torch.broadcast_to(xp, lanes + (b, npad)).reshape(-1, b, npad)
+        if op.data.ndim == 4:
+            y = _kops.bell_matvec_mrhs(op.data, op.cols, xb)
+        else:
+            db = torch.broadcast_to(op.data, lanes + op.data.shape[-4:])
+            cb = torch.broadcast_to(op.cols, lanes + op.cols.shape[-2:])
+            y = _kops.bell_matvec_mrhs(
+                db.reshape((-1,) + db.shape[-4:]).contiguous(),
+                cb.reshape((-1,) + cb.shape[-2:]).contiguous(), xb)
+        y = y.reshape(lanes + (b, npad)).to(x.dtype)
+    return y[..., :op.n_static] if pad else y
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ plain PyTorch version:
   K2 ``bell_matvec``       (``csrc/bell.cu``)        blocked-ELL SpMV
   K3 ``fused_step_dense``  (``csrc/dense_step.cu``)  fused step, dense A
   K4 ``fused_step_bell``   (``csrc/bell.cu``)        fused step, BELL A
+  K5 ``bell_matvec_mrhs``  (``csrc/bell_mrhs.cu``)   blocked-ELL SpMM
 
 ``ops`` routes a CPU tensor to the plain version and a CUDA tensor to the
 kernel (or raises). Kernels build at first CUDA use (``_build``); nothing

@@ -1,4 +1,4 @@
-"""The dispatch layer over the four hand-written kernels.
+"""The dispatch layer over the five hand-written kernels.
 
 Each entry point takes tensors on one device:
 
@@ -20,7 +20,7 @@ from . import lanczos_step as _ls
 from . import spmv_bell as _sb
 
 LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
-            "fused_step_bell": 0}
+            "fused_step_bell": 0, "bell_matvec_mrhs": 0}
 
 
 def reset_launches() -> None:
@@ -55,6 +55,17 @@ def bell_matvec(data, cols, x):
         return _sb.bell_matvec_plain(data, cols, x)
     out = _sb.bell_matvec_cuda(data, cols, x)
     LAUNCHES["bell_matvec"] += 1
+    return out
+
+
+def bell_matvec_mrhs(data, cols, x):
+    """K5: blocked-ELL SpMM with f32 accumulation and output over
+    row-stacked right-hand sides x (L, b, N), N = R * bs; the table is
+    shared (R, K, bs, bs) or per lane (L, R, K, bs, bs)."""
+    if not _on_cuda(x, "bell_matvec_mrhs"):
+        return _sb.bell_matvec_mrhs_plain(data, cols, x)
+    out = _sb.bell_matvec_mrhs_cuda(data, cols, x)
+    LAUNCHES["bell_matvec_mrhs"] += 1
     return out
 
 

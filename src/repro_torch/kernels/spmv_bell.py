@@ -14,6 +14,11 @@ dtype); ``bell_matvec_plain`` is the plain PyTorch version of the K2
 kernel, with the kernel's contract: f32 accumulation, f32 output
 (``repro/kernels/spmv_bell.py:38-40, :66``). ``bell_matvec_cuda``
 launches ``csrc/bell.cu``; ``kernels.ops.bell_matvec`` picks by device.
+
+K5, the multi-right-hand-side SpMM of block-Krylov mode, has the same
+contract over row-stacked blocks x (L, b, N): ``bell_matvec_mrhs_plain``
+beside ``bell_matvec_mrhs_cuda`` (``csrc/bell_mrhs.cu``), picked by
+``kernels.ops.bell_matvec_mrhs``.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ def bell_matvec_ref(data: torch.Tensor, cols: torch.Tensor,
         flat_idx = idx.reshape(idx.shape[:-2] + (r * k, 1))
         flat_idx = flat_idx.expand(xb.shape[:-2] + (r * k, 1))
         gathered = torch.take_along_dim(xb, flat_idx, dim=-2)
-        gathered = gathered.reshape(cols.shape[:-2] + (r, k, bs))
+        gathered = gathered.reshape(gathered.shape[:-2] + (r, k, bs))
         y = torch.einsum("...rkij,...rkj->...ri", data.to(x.dtype),
                          gathered)
     return y.reshape(x.shape[:-1] + (r * bs,))
@@ -107,6 +112,61 @@ def bell_matvec_cuda(data: torch.Tensor, cols: torch.Tensor,
                 dims, _build.stream_of(x))
     _build.check(rc, "bell_matvec")
     return y[0] if single else y
+
+
+def bell_matvec_mrhs_plain(data: torch.Tensor, cols: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: Y = A @ X for row-stacked right-hand
+    sides x (L, b, R*bs), with f32 accumulation and an f32 result.
+    ``data``/``cols`` are one shared table, or one per lane (leading L)."""
+    d32, x32 = data.to(torch.float32), x.to(torch.float32)
+    if cols.ndim == 2:
+        return bell_matvec_ref(d32, cols, x32)
+    return bell_matvec_ref(d32[:, None], cols[:, None], x32)
+
+
+def bell_matvec_mrhs_cuda(data: torch.Tensor, cols: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on CUDA tensors: x (L, b, N) with N = R * bs, any float
+    dtype (rounded to f32 once); ``data`` (R, K, bs, bs) shared by all
+    L*b rows or (L, R, K, bs, bs) per lane; f32 result of x's shape."""
+    if x.device.type != "cuda":
+        raise ValueError(f"bell_matvec_mrhs_cuda needs CUDA tensors, got "
+                         f"{x.device}")
+    r, k, bs, _ = data.shape[-4:]
+    if x.ndim != 3 or x.shape[-1] != r * bs:
+        raise ValueError(f"bell_matvec_mrhs_cuda wants x (L, b, N) with "
+                         f"N={r * bs}, got {tuple(x.shape)}")
+    if data.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bell_matvec_mrhs_cuda takes f32/f64 data, got "
+                        f"{data.dtype}")
+    if cols.dtype != torch.int32:
+        raise TypeError(f"cols must be int32, got {cols.dtype}")
+    for name, t in (("data", data), ("cols", cols)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    lanes, b, n = x.shape
+    xf = x.to(torch.float32).contiguous()
+    if data.ndim == 4:      # one table: every row of every lane in one GEMM
+        groups, rows = 1, lanes * b
+    else:
+        groups, rows = lanes, b
+    dims = (ctypes.c_longlong * 7)(
+        groups, rows, r, k, bs, _lane_stride(data, 4, groups),
+        _lane_stride(cols, 2, groups))
+    y = torch.empty_like(xf)
+    lib = _build.load("bell_mrhs")
+    fn = lib.bell_matvec_mrhs_f64 if data.dtype == torch.float64 \
+        else lib.bell_matvec_mrhs_f32
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        rc = fn(_build.ptr_array([data, cols, xf]), _build.ptr_array([y]),
+                dims, _build.stream_of(x))
+    _build.check(rc, "bell_matvec_mrhs")
+    return y
 
 
 def dense_to_bell(a, bs: int = 128, k_max: int | None = None,

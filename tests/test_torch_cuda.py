@@ -1,4 +1,4 @@
-"""K1-K4 on the card: each hand-written CUDA kernel against its plain
+"""K1-K5 on the card: each hand-written CUDA kernel against its plain
 PyTorch version on the same tensors, at small ragged shapes (lane counts
 that are not a multiple of the lane block, N that is not a multiple of
 the row tile or the staged column chunk), with breakdown and guard lanes.
@@ -10,7 +10,7 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: 1e-12 relative for the f64 kernels (FMA contraction and
-summation order), 1e-5 for the f32 paths (the K2 contract is f32
+summation order), 1e-5 for the f32 paths (the K2 and K5 contract is f32
 accumulation).
 """
 import numpy as np
@@ -141,6 +141,81 @@ def test_k2_matches_plain(cuda, per_lane, data_dtype):
     if not per_lane:   # one lane as a vector
         _close([ops.bell_matvec(data, cols, x[1])],
                [tsb.bell_matvec_plain(data, cols, x[1])], 1e-5, "K2 1-D")
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes,b,bs", [(3, 4, 8), (70, 3, 32),
+                                        (5, 8, 128)])
+def test_k5_matches_plain(cuda, per_lane, x_dtype, lanes, b, bs):
+    """K5 on row-stacked (L, b, N) blocks against its plain version:
+    shared and per-lane tables, ragged right-hand-side counts (L * b not
+    a multiple of the 64-row tile), bs below and at the 128-entry tile,
+    f32 and f64 X (rounded to f32 once)."""
+    rng = np.random.default_rng(5)
+    n = 300
+    d_np, c_np, _ = tsb.dense_to_bell(_spd(n, seed=5, density=0.05), bs=bs)
+    data = torch.as_tensor(d_np, device=cuda)
+    cols = torch.as_tensor(c_np, device=cuda)
+    if per_lane:
+        data = torch.stack([data * (1.0 + 0.1 * i) for i in range(lanes)])
+        cols = torch.stack([cols] * lanes)
+    x = torch.as_tensor(rng.standard_normal((lanes, b, data.shape[-4] * bs)),
+                        dtype=x_dtype, device=cuda)
+    before = ops.LAUNCHES["bell_matvec_mrhs"]
+    got = ops.bell_matvec_mrhs(data, cols, x)
+    assert ops.LAUNCHES["bell_matvec_mrhs"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close([got], [tsb.bell_matvec_mrhs_plain(data, cols, x)], 1e-5, "K5")
+    again = ops.bell_matvec_mrhs(data, cols, x)
+    assert torch.equal(got, again)      # no atomics: the same bits
+
+
+def test_k5_through_matvec_mrhs_with_ragged_n(cuda):
+    """N = 300 is not a multiple of bs: the operator pads x to R * bs and
+    slices the result back; each row equals K2's matvec of that row."""
+    from repro_torch.core import SparseBELL, stack_ops
+    from repro_torch.core.operators import matvec_mrhs
+    rng = np.random.default_rng(6)
+    a = _spd(300, seed=6, density=0.05)
+    op = bell_from_dense(a, bs=32, dtype=np.float32, device=cuda,
+                         mode="pallas")
+    assert isinstance(op, SparseBELL)
+    x = torch.as_tensor(rng.standard_normal((4, 3, 300)), device=cuda)
+    got = matvec_mrhs(op, x)
+    assert got.dtype == torch.float64 and got.shape == x.shape
+    rows = torch.stack([op.matvec(x[:, j]) for j in range(3)], dim=1)
+    _close([got], [rows], 1e-5, "K5 vs K2 rows")
+    ref = matvec_mrhs(bell_from_dense(a, bs=32, dtype=np.float32,
+                                      device="cpu", mode="pallas"), x.cpu())
+    _close([got], [ref], 1e-5, "K5 vs plain")
+    st = stack_ops([op, op])
+    got2 = matvec_mrhs(st, x[:2])
+    _close([got2], [got[:2]], 1e-5, "K5 per-lane tables")
+
+
+def test_k5_drives_the_block_solver(cuda):
+    """A block solve on 'pallas' launches K5 once at init and once per
+    block step, and matches the plain path's discrete outcomes."""
+    rng = np.random.default_rng(7)
+    a = _spd(256, seed=7, density=0.05)
+    w = np.linalg.eigvalsh(a.astype(np.float32).astype(np.float64))
+    us = rng.standard_normal((6, 4, 256))
+    iv = dict(lam_min=0.9 * w[0], lam_max=1.1 * w[-1])
+    s = BIFSolver.create(max_iters=40, rtol=1e-6, block_size=4, fn="log",
+                         backend="pallas")
+    op = bell_from_dense(a, bs=32, dtype=np.float32, device=cuda)
+    before = ops.LAUNCHES["bell_matvec_mrhs"]
+    res = s.solve_batch(op, torch.as_tensor(us, device=cuda), **iv)
+    launches = ops.LAUNCHES["bell_matvec_mrhs"] - before
+    assert launches == int(res.iterations.max())
+    cpu = s.solve_batch(bell_from_dense(a, bs=32, dtype=np.float32,
+                                        device="cpu"),
+                        torch.as_tensor(us), **iv)
+    assert torch.equal(res.certified.cpu(), cpu.certified)
+    assert int((res.iterations.cpu() - cpu.iterations).abs().max()) <= 1
+    _close([res.lower, res.upper], [cpu.lower, cpu.upper], 1e-5,
+           "block bracket")
 
 
 @pytest.mark.parametrize("n,lanes,reorth,kind", [

@@ -134,6 +134,54 @@ def test_k2_per_lane_tables():
     _close([got], [np.stack(want)], rtol=1e-5, what="bell per-lane")
 
 
+@pytest.mark.parametrize("n,bs,lanes,b", [(64, 8, 1, 4), (100, 8, 3, 2),
+                                          (37, 16, 2, 3)])
+def test_k5_bell_matvec_mrhs_plain_matches_pallas(n, bs, lanes, b):
+    """K5's plain version on row-stacked (L, b, N) blocks against the
+    reference's SpMM kernel (interpret mode) on each lane's
+    column-stacked (N, b) block; x enters in f64 and is rounded to f32
+    once on both sides."""
+    rng = np.random.default_rng(n + b)
+    m = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.1)
+    data, cols, _ = tsb.dense_to_bell((m + m.T) / 2, bs=bs)
+    npad = data.shape[0] * bs
+    x = rng.standard_normal((lanes, b, npad))
+    want = [jsb.bell_matvec_mrhs(jnp.asarray(data), jnp.asarray(cols),
+                                 jnp.asarray(xx.T.astype(np.float32)),
+                                 interpret=True).T for xx in x]
+    got = tsb.bell_matvec_mrhs_plain(_t(data), _t(cols), _t(x))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close([got], [np.stack(want)], rtol=1e-5, what="bell_matvec_mrhs")
+    assert torch.equal(ops.bell_matvec_mrhs(_t(data), _t(cols), _t(x)), got)
+    # each row is K2's matvec of that row
+    rows = tsb.bell_matvec_plain(_t(data), _t(cols),
+                                 _t(x).reshape(-1, npad))
+    _close([got.reshape(-1, npad)], [rows], rtol=1e-5, what="rows")
+
+
+def test_k5_per_lane_tables():
+    rng = np.random.default_rng(19)
+    tables = []
+    for s in range(3):
+        m = rng.standard_normal((40, 40)) * (rng.random((40, 40)) < 0.15)
+        tables.append(tsb.dense_to_bell((m + m.T) / 2, bs=8, k_max=5))
+    data = np.stack([t[0] for t in tables])
+    cols = np.stack([t[1] for t in tables])
+    x = rng.standard_normal((3, 4, 40)).astype(np.float32)
+    want = [jsb.bell_matvec_mrhs(jnp.asarray(d), jnp.asarray(c),
+                                 jnp.asarray(xx.T), interpret=True).T
+            for d, c, xx in zip(data, cols, x)]
+    got = tsb.bell_matvec_mrhs_plain(_t(data), _t(cols), _t(x))
+    _close([got], [np.stack(want)], rtol=1e-5, what="mrhs per-lane")
+
+
+def test_k5_cuda_launcher_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tsb.bell_matvec_mrhs_cuda(torch.zeros(1, 1, 8, 8),
+                                  torch.zeros(1, 1, dtype=torch.int32),
+                                  torch.zeros(1, 2, 8))
+
+
 def _state_inputs(op, us, steps, reorth):
     """Fused-step operands from a real (eager) JAX run of ``steps``
     iterations: consistent pivots and, with ``reorth``, the banked basis
