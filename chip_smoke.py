@@ -7,7 +7,7 @@ It runs every phase, in order, each printing one JSON line:
 
   1. device   -- the card's name and power limit (nvidia-smi), TF32 flags;
   2. build    -- nvcc builds the kernels from ``csrc/`` (seconds);
-  3. kernels  -- K1-K5 at the main path's shapes: each kernel against its
+  3. kernels  -- K1-K7 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
                  the least time the card could take (bound);
@@ -24,10 +24,26 @@ It runs every phase, in order, each printing one JSON line:
                  'reference'), and with 64 scalar probes on 'fused' (K4
                  and the matrix-function eigensolve); every lane's
                  bracket holds its tr Z^T log(A) Z from a dense eigh;
-  7. coo      -- two SparseCOO matvecs on the card give identical bits;
-  8. profile  -- each path call again, warm: host seconds beside the
-                 device time of every kernel it launched (torch.profiler),
-                 so the card's idle share is 1 - device / host.
+  7. bilinear -- a ridge sweep over the dense phase's kernel, 16 systems
+                 A_b = K + lam_b I stored as (16, 4177, 4177) f32, one lane
+                 each: solve_batch and judge_batch with a MatvecFn over
+                 fused_matvec on 'pallas' (K6 + K1), and with Dense on the
+                 same f32 matrices on 'reference'; every bracket holds its
+                 dense-solve truth;
+  8. attention -- one attention layer of llama3-405b (128 query heads over
+                 8 kv heads, head width 128, bf16): mha_flash over a 4096-
+                 token causal prefill, a decode-shaped call (one query over
+                 the 4096 keys) and an f32 call over 16 heads, each against
+                 the plain version on the card row by row, and the same
+                 measure on planted faults, which it must catch;
+  9. coo      -- two SparseCOO matvecs on the card give identical bits;
+ 10. profile  -- each path call again, warm: host seconds beside the
+                 device time of every kernel it launched (torch.profiler;
+                 CUDA events for the one-launch attention call), so the
+                 card's idle share is 1 - device / host;
+ 11. yardsticks -- the library calls that run Triton kernels (K5's BSR @
+                 dense at 512 columns), timed last: after one, the
+                 profiler misses calls that launch only the port's kernels.
 
 Every path phase holds the port against the same calls on
 ``backend='reference'`` on the same card and against dense solves for the
@@ -52,17 +68,19 @@ try:
 except ImportError:  # no PyTorch at all: nothing to drive
     torch = None
 
-PHASES = ("device", "build", "kernels", "dense", "sparse", "trace", "coo",
-          "profile")
+PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
+          "bilinear", "attention", "coo", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
-           "bell_matvec_mrhs")
+           "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # dense flops/s for each type. f64 is the FP64 tensor-core rate, the
 # highest the card has for f64 work; f32 is the rate outside the tensor
-# cores.
+# cores (f32 must not go through TF32 here); bf16 the dense tensor-core
+# rate.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12} if torch else {}
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
+              torch.bfloat16: 989e12} if torch else {}
 
 K = 64          # lanes of the main path
 SEED = 0
@@ -80,6 +98,32 @@ SPARSE = dict(max_iters=384, rtol=1e-3)
 PROBES, BLOCK, SCALAR_PROBES = 512, 8, 64
 TRACE_BLOCK = dict(max_iters=64, rtol=1e-3, decide_every=8)
 TRACE_SCALAR = dict(max_iters=96, rtol=1e-3, decide_every=8)
+# The K6 path (bilinear phase): a ridge sweep lam_b = 0.05 * 2^(b/4),
+# b = 0..15, over the dense phase's RBF kernel, each system stored in f32
+# as the kernel reads it, one f64 query lane per system. The cap and
+# tolerance come from a CPU rehearsal of this phase at full size on the
+# plain path (a Smoke on the CPU device, its timing helpers stubbed): at
+# rtol 1e-6 every solve lane certified by 56 iterations (mean 34.4),
+# every judge by 8, and the cap leaves room above them.
+SYSTEMS = 16
+BILINEAR = dict(max_iters=80, rtol=1e-6)
+# The K7 path (attention phase): one attention layer of llama3-405b
+# (src/repro/configs/llama3_405b.py: 128 query heads over 8 kv heads,
+# head width 128, bf16 weights and activations), a 4096-token prefill.
+TOKENS, HEADS, KV_HEADS, HEAD_DIM = 4096, 128, 8, 128
+F32_HEADS = 16    # the f32 call's heads (BH), over one kv head
+PLAIN_HEADS = 16  # heads per chunk of the plain version: (16, T, S) f32
+# K7 is held row by row (row_errors): for each (head, query row) the
+# relative 2-norm error over the head width, the largest over rows, so a
+# late causal row, whose outputs are near sqrt(e / T), is read at its own
+# scale. bf16: the kernel rounds its output to bf16, 2^-9 relative (P
+# enters P V as two bf16 parts, to about 2^-17); 1e-2 lies between that
+# and the readings of two planted faults (FAULT_KEYS: one 64-key tile of
+# the bf16 kernel left out, or the running sum not rescaled at that
+# tile), which the attention phase prints and holds above the limit.
+# f32: CUDA-core FMA in another order.
+ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4} if torch else {}
+FAULT_KEYS = (1024, 1088)
 
 
 def emit(obj) -> None:
@@ -155,6 +199,20 @@ def errors(got, want) -> tuple:
     return abs_err, rel_err
 
 
+def row_errors(got, want) -> tuple:
+    """(max abs error, max relative error of a row) over paired outputs:
+    ||g - w||_2 / ||w||_2 along the last axis, the largest over the other
+    axes (K7's measure: each (head, query row) at its own scale)."""
+    abs_err, rel_err = 0.0, 0.0
+    for g, w in zip(got, want):
+        w = w.double()
+        d = g.double() - w
+        abs_err = max(abs_err, d.abs().max().item())
+        rel = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-300)
+        rel_err = max(rel_err, rel.max().item())
+    return abs_err, rel_err
+
+
 def flatten_out(out):
     alpha, beta, r, raw = out
     return [alpha, beta, r, *raw]
@@ -176,6 +234,91 @@ def bsr_of(data, cols, dtype):
         size=(nr * bs, nr * bs))
 
 
+def mha_plain(q, k, v, causal: bool):
+    """K7's plain version over (B, T, H, D) q and (B, S, Hkv, D) k/v: the
+    reference wrapper's repeat-and-flatten, PLAIN_HEADS query heads at a
+    time so that their (heads, T, S) f32 scores fit on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    b, t, h, d = q.shape
+    s, rep = k.shape[1], h // k.shape[2]
+    out = torch.empty_like(q)
+    for h0 in range(0, h, PLAIN_HEADS):
+        hs = torch.arange(h0, min(h0 + PLAIN_HEADS, h), device=q.device)
+        qf, kf, vf = (x[:, :, idx].transpose(1, 2).reshape(-1, n, d)
+                      for x, idx, n in ((q, hs, t), (k, hs // rep, s),
+                                        (v, hs // rep, s)))
+        out[:, :, h0:h0 + len(hs)] = flash_attention_plain(
+            qf, kf, vf, causal=causal).reshape(b, -1, t, d).transpose(1, 2)
+    return out
+
+
+def planted_faults(q, k, v, want) -> dict:
+    """K7's row measure (row_errors against ``want``, the plain prefill)
+    on wrong outputs of the first PLAIN_HEADS query heads, made without
+    the kernel: the plain causal softmax over three key segments split at
+    FAULT_KEYS, recombined as the online softmax does (``sound``), with
+    the middle tile left out (``tile_skipped``), and with the running sum
+    of the first segment not rescaled when the tile raises the row's max
+    (``no_rescale``)."""
+    b, t, h, d = q.shape
+    s_len, rep = k.shape[1], h // k.shape[2]
+    hs = torch.arange(PLAIN_HEADS, device=q.device)
+    qf, kf, vf = (x[0][:, idx].transpose(0, 1).to(torch.float32)
+                  for x, idx in ((q, hs), (k, hs // rep), (v, hs // rep)))
+    rows = torch.arange(t, device=q.device)[:, None]
+    cols = torch.arange(s_len, device=q.device)[None, :]
+    lo, hi = FAULT_KEYS
+
+    def segment(a, z):    # (m, l, acc) of keys [a, z), causal
+        keep = cols[:, a:z] <= rows
+        sc = torch.einsum("btd,bsd->bts", qf, kf[:, a:z]) / d ** 0.5
+        sc = torch.where(keep, sc, torch.full((), -1e30, device=q.device))
+        m = sc.max(-1, keepdim=True).values
+        p = torch.exp(sc - m) * keep
+        return m, p.sum(-1, keepdim=True), p @ vf[:, a:z]
+
+    def merge(x, y, rescale=True):
+        m = torch.maximum(x[0], y[0])
+        ax, ay = torch.exp(x[0] - m), torch.exp(y[0] - m)
+        return m, x[1] * ax + y[1] * ay, \
+            (x[2] * ax if rescale else x[2]) + y[2] * ay
+
+    def out(x):
+        o = (x[2] / x[1].clamp_min(1e-30)).to(q.dtype)
+        return o.transpose(0, 1)[None]     # (1, T, heads, D)
+
+    pa, pb, pc = segment(0, lo), segment(lo, hi), segment(hi, s_len)
+    ref = want[:, :, :PLAIN_HEADS]
+    wrong = {"sound": merge(merge(pa, pb), pc),
+             "tile_skipped": merge(pa, pc),
+             "no_rescale": merge(merge(pa, pb, rescale=False), pc)}
+    return {what: row_errors([out(x)], [ref])[1]
+            for what, x in wrong.items()}
+
+
+def iterations_of(out) -> int:
+    """The longest lane's iterations of a solver call; 1 for a call that
+    has no iterations (an attention forward)."""
+    if isinstance(out, torch.Tensor):
+        return 1
+    its = out.state.iterations if hasattr(out, "std_error") \
+        else out.iterations
+    return int(its.max())
+
+
+def sdpa_gqa(q, k, v):
+    """PyTorch's fused attention on (B, H, T, D) views with grouped kv
+    heads: the library yardstick of K7 (the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+
+
+def causal_pairs(t_len: int, s_len: int) -> int:
+    """(query, key) pairs a causal mask keeps, zero-aligned: key j <= i."""
+    return sum(min(i + 1, s_len) for i in range(t_len))
+
+
 class Smoke:
     def __init__(self, rt, dev):
         self.rt = rt          # the repro_torch package
@@ -185,7 +328,10 @@ class Smoke:
         self.path_calls = []  # (iterations, launches) of each path call
         self.dense = None     # shared problem data between phases
         self.sparse = None
+        self.bilinear = None
+        self.attention = None
         self.setup_s = {}     # seconds of the problems' set-up steps
+        self.late_library = []  # (kernel, thunk): timed in the last phase
 
     # -- problems --------------------------------------------------------
 
@@ -263,6 +409,69 @@ class Smoke:
                 time.perf_counter() - t0
         return sp
 
+    def bilinear_problem(self):
+        """The K6 path's 16 systems A_b = K + lam_b I, K the dense phase's
+        f64 RBF kernel, each rounded to f32 (the operand K6 reads); the
+        exact f64 values of those f32 entries; seeded f64 queries; the
+        per-lane interval [0.9 (lam_lo + lam_b), 1.1 (lam_hi + lam_b)]
+        from K's extreme eigenvalues (rounding K + lam_b I to f32 moves
+        an eigenvalue by at most |E|_F, about 1e-5 here, against a 10%
+        margin of at least 6e-3); the truths u_b^T A_b^-1 u_b of the f32
+        operators from dense f64 solves."""
+        if self.bilinear is None:
+            from repro_torch.core import MatvecFn
+            from repro_torch.kernels import ops
+            d = self.dense_problem()
+            t0 = time.perf_counter()
+            k, n = d["a"], d["a"].shape[0]
+            lam = 0.05 * 2.0 ** (torch.arange(SYSTEMS, device=self.dev,
+                                              dtype=torch.float64) / 4)
+            eye = torch.eye(n, dtype=torch.float64, device=self.dev)
+            a32 = torch.stack([(k + lb * eye).to(torch.float32)
+                               for lb in lam])
+            rng = np.random.default_rng(SEED + 7)
+            u = torch.as_tensor(rng.standard_normal((SYSTEMS, n)),
+                                device=self.dev)
+            truth = torch.stack([
+                u[i] @ torch.linalg.solve(a32[i].double(), u[i])
+                for i in range(SYSTEMS)])
+            lam_lo, lam_hi = d["lam"]
+            diag = torch.diagonal(a32, dim1=1, dim2=2)
+            self.bilinear = dict(
+                a32=a32, u=u, truth=truth, lam=lam,
+                lmn=0.9 * (lam_lo + lam), lmx=1.1 * (lam_hi + lam),
+                # the K6 path's operator: the kernel's y as the matvec
+                op=MatvecFn(fn=lambda x: ops.fused_matvec(a32, x)[0],
+                            n_static=n, diag_vals=diag))
+            self.setup_s["bilinear problem"] = time.perf_counter() - t0
+        return self.bilinear
+
+    def attention_problem(self):
+        """q (1, T, 128, 128), k and v (1, T, 8, 128) in bf16 from a
+        seeded generator on the card, and the f32 call's operands: the
+        first 16 query heads (BH, T, D) with the kv head they read."""
+        if self.attention is None:
+            t0 = time.perf_counter()
+            g = torch.Generator(device=self.dev).manual_seed(SEED + 8)
+
+            def draw(h):
+                return torch.randn((1, TOKENS, h, HEAD_DIM), generator=g,
+                                   device=self.dev).to(torch.bfloat16)
+
+            q, k, v = draw(HEADS), draw(KV_HEADS), draw(KV_HEADS)
+            rep = HEADS // KV_HEADS
+            hs = torch.arange(F32_HEADS, device=self.dev)
+
+            def flat32(x, heads):
+                return x[0][:, heads].transpose(0, 1).to(
+                    torch.float32).contiguous()
+
+            self.attention = dict(
+                q=q, k=k, v=v, q32=flat32(q, hs), k32=flat32(k, hs // rep),
+                v32=flat32(v, hs // rep))
+            self.setup_s["attention problem"] = time.perf_counter() - t0
+        return self.attention
+
     # -- phases ----------------------------------------------------------
 
     def phase_device(self):
@@ -293,26 +502,26 @@ class Smoke:
 
     def _kernel_line(self, name, route_src, replaces, got, want, tol, why,
                      kernel_ms, plain_ms, bound_ms, bound_by, library_ms,
-                     fn, library_note=None):
-        """One kernels line; ``library_ms`` may be a thunk, timed after the
-        kernel's own profile (a library call that runs Triton kernels
-        leaves the next profile of the process empty)."""
-        abs_err, rel_err = errors(got, want)
+                     fn, library_note=None, err=errors):
+        """One kernels line. ``library_ms`` may be a thunk: a library call
+        that runs Triton kernels (BSR @ dense) is timed in the last phase,
+        because after one, the profiler records nothing of a call that
+        launches only the port's own kernels (the K6 and K7 lines came
+        back empty behind K5's yardstick). ``err`` is the error measure:
+        normwise against each output's largest entry, or K7's per row."""
+        abs_err, rel_err = err(got, want)
         per_call = sum(c for _, c in device_kernels(fn).values())
-        t_lib = time.perf_counter()
         if callable(library_ms):
-            library_ms = library_ms()
-        t_lib = time.perf_counter() - t_lib
+            self.late_library.append((name, library_ms))
+            library_ms = None
         line = {"phase": "kernels", "name": name, "max_abs_err": abs_err,
-                "max_rel_err": rel_err, "tolerance": tol, "reason": why,
+                "max_rel_err": rel_err, "error_measure": err.__name__,
+                "tolerance": tol, "reason": why,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 # device kernels that one call of the wrapper launches
-                "cuda_kernels_per_call": per_call,
-                # wall seconds of the library timing, its first call
-                # (a Triton build for BSR @ dense at 512 columns) included
-                "library_timing_s": t_lib}
+                "cuda_kernels_per_call": per_call}
         if library_note:
             line["library_covers"] = library_note
         emit(line)
@@ -474,6 +683,59 @@ class Smoke:
             bms, bby, lambda: cuda_ms(lambda: torch.matmul(bsr32, xt5)),
             lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb),
             "the SpMM (BSR @ dense, f32, 512 right-hand sides)")
+
+        # K6 on the bilinear path's operands: the 16 f32 systems and the
+        # f64 query lanes (the Lanczos vectors it is handed are f64; it
+        # rounds them to f32 as it reads them)
+        from repro_torch.kernels import bilinear_matvec as bm
+        bp = self.bilinear_problem()
+        a32, xq = bp["a32"], bp["u"] / bp["u"].norm(dim=-1, keepdim=True)
+        got = list(ops.fused_matvec(a32, xq))
+        want = list(bm.fused_matvec_plain(a32, xq))
+        nsys, n6 = xq.shape
+        nb = nbytes(a32, xq) + nbytes(*got)
+        bms, bby = bound(nb, 2 * nsys * n6 * n6 + 2 * nsys * n6,
+                         torch.float32)
+        xq32 = xq.to(torch.float32)
+
+        def bmm_dot():
+            y = torch.bmm(a32, xq32[:, :, None])[:, :, 0]
+            return y, torch.sum(xq32 * y, dim=-1)
+
+        self._kernel_line(
+            "fused_matvec", "src/repro_torch/kernels/csrc/bilinear_matvec.cu",
+            "src/repro/kernels/bilinear_matvec.py:58", got, want, 1e-5,
+            "f32 accumulation (the kernel's contract) in another order",
+            cuda_ms(lambda: ops.fused_matvec(a32, xq)),
+            cuda_ms(lambda: bm.fused_matvec_plain(a32, xq)), bms, bby,
+            cuda_ms(bmm_dot), lambda: ops.fused_matvec(a32, xq),
+            "torch.bmm for y and a dot product for alpha (f32 x)")
+
+        # K7 on the attention path's prefill: q (1, 4096, 128, 128), k and
+        # v (1, 4096, 8, 128) in bf16, causal; the plain version runs in
+        # chunks of 16 heads
+        ap = self.attention_problem()
+        q, k, v = ap["q"], ap["k"], ap["v"]
+        got = [ops.mha_flash(q, k, v, causal=True)]
+        want = [mha_plain(q, k, v, True)]
+        flops = 4 * HEADS * HEAD_DIM * causal_pairs(TOKENS, TOKENS)
+        bms, bby = bound(nbytes(q, k, v) + nbytes(*got), flops,
+                         torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        self._kernel_line(
+            "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:67", got, want,
+            ATTN_TOL[torch.bfloat16],
+            "bf16 inputs and output, f32 accumulation in another order; "
+            "per (head, query row)",
+            cuda_ms(lambda: ops.mha_flash(q, k, v, causal=True), reps=5,
+                    warmup=1),
+            cuda_ms(lambda: mha_plain(q, k, v, True), reps=3, warmup=1),
+            bms, bby, cuda_ms(lambda: sdpa_gqa(qt, kt, vt), reps=5,
+                              warmup=1),
+            lambda: ops.mha_flash(q, k, v, causal=True),
+            "F.scaled_dot_product_attention, causal, on the same bf16 "
+            "tensors with the kv heads shared (enable_gqa)", row_errors)
         emit({"phase": "kernels", "ported": sorted(self.kernels)})
         assert sorted(self.kernels) == sorted(KERNELS)
 
@@ -552,14 +814,12 @@ class Smoke:
 
     def path_call(self, fn):
         """One call of the main path, timed; records how many iterations
-        it ran (its longest lane's) and how many times it launched each
-        kernel."""
+        it ran (its longest lane's; an attention call counts as one) and
+        how many times it launched each kernel."""
         from repro_torch.kernels import LAUNCHES
         before = dict(LAUNCHES)
         out, seconds = self.run_timed(fn)
-        its = out.state.iterations if hasattr(out, "std_error") \
-            else out.iterations
-        self.path_calls.append((int(its.max()), {
+        self.path_calls.append((iterations_of(out), {
             k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
         return out, seconds
 
@@ -814,6 +1074,141 @@ class Smoke:
         assert launches["fused_step_bell"] > 0
         self._count(launches)
 
+    def phase_bilinear(self):
+        """The K6 path: 16 independent systems as lanes of one batched
+        solve, the matvec a MatvecFn over fused_matvec (K6 once per
+        iteration for all lanes) with K1 on 'pallas'; the same f32
+        matrices as a Dense operator on 'reference' (computed in f64, as
+        the reference's einsum promotes). Every lane of both certifies
+        before the cap, decisions and certification agree, iteration
+        counts differ by at most 1, and every bracket holds its truth."""
+        from repro_torch.core import BIFSolver, Dense
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        bp = self.bilinear_problem()
+        u, truth = bp["u"], bp["truth"]
+        iv = dict(lam_min=bp["lmn"], lam_max=bp["lmx"])
+        rng = np.random.default_rng(SEED + 9)
+        delta = rng.uniform(0.05, 0.5, SYSTEMS) \
+            * rng.choice([-1.0, 1.0], SYSTEMS)
+        t = truth * (1.0 + torch.as_tensor(delta, device=self.dev))
+        dense = Dense(bp["a32"])
+
+        def cfg(backend):
+            return BIFSolver.create(**BILINEAR, backend=backend)
+
+        reset_launches()
+        solve_p, t_sp = self.path_call(lambda: cfg("pallas").solve_batch(
+            bp["op"], u, **iv))
+        k6_solve = LAUNCHES["fused_matvec"]
+        judge_p, t_jp = self.path_call(lambda: cfg("pallas").judge_batch(
+            bp["op"], u, t, **iv))
+        k6_judge = LAUNCHES["fused_matvec"] - k6_solve
+        launches = dict(LAUNCHES)
+        solve_r, t_sr = self.run_timed(lambda: cfg("reference").solve_batch(
+            dense, u, **iv))
+        judge_r, t_jr = self.run_timed(lambda: cfg("reference").judge_batch(
+            dense, u, t, **iv))
+
+        # K6 accumulates in f32 (its contract): the bracket is that of an
+        # operator perturbed at f32 roundoff, which moves u^T A^-1 u by up
+        # to about kappa * 2^-24 relative (kappa of the lane's interval),
+        # the slack of the sparse phase's f32 matvec
+        kappa = float((bp["lmx"] / bp["lmn"]).max())
+        f32_slack = kappa * 2.0 ** -24
+        line = {"phase": "bilinear", "n": int(u.shape[-1]),
+                "systems": SYSTEMS, "a": list(bp["a32"].shape),
+                "a_dtype": str(bp["a32"].dtype).replace("torch.", ""),
+                "ridge_sweep": [float(bp["lam"][0]), float(bp["lam"][-1])],
+                "kappa_max": kappa,
+                "solve_batch_pallas": self._compare(
+                    "solve_batch pallas", solve_p, solve_r, truth,
+                    f32_slack, cap=BILINEAR["max_iters"]),
+                "solve_batch_reference_contains_truth": contains(
+                    solve_r.lower, solve_r.upper, truth, 1e-9),
+                "judge_batch_pallas": {
+                    "decisions_equal": bool(torch.equal(judge_p.decision,
+                                                        judge_r.decision)),
+                    "certified": int(judge_p.certified.sum()),
+                    "reference_certified": int(judge_r.certified.sum()),
+                    "decisions_true": bool(torch.all(
+                        judge_p.decision == (t < truth))),
+                    "iterations_max": int(judge_p.iterations.max()),
+                    "max_iter_diff": int((judge_p.iterations.long()
+                                          - judge_r.iterations.long())
+                                         .abs().max())},
+                # K6 once at init, then once per step of the longest lane
+                "k6_launches": {"solve_batch": k6_solve,
+                                "judge_batch": k6_judge},
+                "seconds": {"solve_batch_pallas": t_sp,
+                            "solve_batch_reference": t_sr,
+                            "judge_batch_pallas": t_jp,
+                            "judge_batch_reference": t_jr},
+                "launches": launches}
+        emit(line)
+        assert line["solve_batch_reference_contains_truth"]
+        assert torch.equal(solve_p.certified, solve_r.certified)
+        jl = line["judge_batch_pallas"]
+        assert jl["decisions_equal"] and jl["decisions_true"]
+        assert jl["certified"] == jl["reference_certified"] == SYSTEMS
+        assert jl["max_iter_diff"] <= 1
+        assert k6_solve == int(solve_p.iterations.max()), \
+            f"K6 launched {k6_solve} times in solve_batch"
+        assert k6_judge == jl["iterations_max"], \
+            f"K6 launched {k6_judge} times in judge_batch"
+        assert launches["gql_update"] > 0
+        self._count(launches)
+
+    def phase_attention(self):
+        """The K7 path: mha_flash over one llama3-405b attention layer,
+        a 4096-token causal prefill in bf16, then a decode-shaped call (the
+        last query over all 4096 keys) and an f32 call over 16 heads,
+        each against the plain version on the card, row by row (ATTN_TOL);
+        then the same measure on planted faults, which must exceed the
+        bf16 limit."""
+        from repro_torch.kernels import LAUNCHES, ops, reset_launches
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+        ap = self.attention_problem()
+        q, k, v = ap["q"], ap["k"], ap["v"]
+        reset_launches()
+        o, t_pre = self.path_call(lambda: ops.mha_flash(q, k, v, causal=True))
+        o_dec, t_dec = self.path_call(lambda: ops.mha_flash(
+            q[:, -1:], k, v, causal=False))
+        o32, t_32 = self.path_call(lambda: ops.flash_attention(
+            ap["q32"], ap["k32"], ap["v32"], causal=True))
+        launches = dict(LAUNCHES)
+        want_pre = mha_plain(q, k, v, True)
+        checks = {
+            "prefill": (o, want_pre, ATTN_TOL[torch.bfloat16]),
+            "decode": (o_dec, mha_plain(q[:, -1:], k, v, False),
+                       ATTN_TOL[torch.bfloat16]),
+            "f32": (o32, flash_attention_plain(ap["q32"], ap["k32"],
+                                               ap["v32"], causal=True),
+                    ATTN_TOL[torch.float32])}
+        faults = planted_faults(q, k, v, want_pre)
+        line = {"phase": "attention", "q": list(q.shape),
+                "kv": list(k.shape), "dtype": "bfloat16",
+                "f32_call": list(ap["q32"].shape), "launches": launches,
+                "seconds": {"prefill": t_pre, "decode": t_dec, "f32": t_32},
+                "error_measure": "row_errors", "planted_faults": faults}
+        for what, (got, want, tol) in checks.items():
+            abs_err, rel_err = row_errors([got], [want])
+            line[what] = {"shape": list(got.shape),
+                          "dtype": str(got.dtype).replace("torch.", ""),
+                          "finite": bool(torch.isfinite(got.float()).all()),
+                          "max_abs_err": abs_err, "max_rel_err": rel_err,
+                          "tolerance": tol}
+        emit(line)
+        for what, (got, want, tol) in checks.items():
+            assert line[what]["finite"], f"attention {what}: not finite"
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert line[what]["max_rel_err"] <= tol, f"attention {what}"
+        assert faults["sound"] <= ATTN_TOL[torch.bfloat16]
+        for what in ("tile_skipped", "no_rescale"):
+            assert faults[what] > ATTN_TOL[torch.bfloat16], \
+                f"the K7 check would pass a kernel with {what}"
+        assert launches["flash_attention"] == 3
+        self._count(launches)
+
     def phase_coo(self):
         from repro_torch.core import sparse_from_dense
         sp = self.sparse_problem()
@@ -836,9 +1231,12 @@ class Smoke:
         """Where the time goes: for each path call, warm, its host
         seconds (no profiler) beside the device time of every kernel it
         launched (torch.profiler, one more call), so the idle share of
-        the card is 1 - device / host. Runs after the path phases, whose
-        launch counts it does not touch."""
+        the card is 1 - device / host; a call the profiler records nothing
+        of raises, except the attention call, one K7 launch, which CUDA
+        events time. Runs after the path phases, whose launch counts it
+        does not touch."""
         from repro_torch.core import BIFSolver, Dense
+        from repro_torch.kernels import LAUNCHES, ops
         d, sp = self.dense_problem(), self.sparse_problem()
         div = dict(lam_min=d["lmn"], lam_max=d["lmx"])
         siv = dict(lam_min=sp["lmn"], lam_max=sp["lmx"])
@@ -869,23 +1267,51 @@ class Smoke:
                      "pallas", PROBES, BLOCK, TRACE_BLOCK),
                  "trace logdet_quad scalar fused": logdet(
                      "fused", SCALAR_PROBES, 1, TRACE_SCALAR)}
+        bp, ap = self.bilinear_problem(), self.attention_problem()
+        k6 = BIFSolver.create(**BILINEAR, backend="pallas")
+        calls["bilinear solve_batch pallas"] = lambda: k6.solve_batch(
+            bp["op"], bp["u"], lam_min=bp["lmn"], lam_max=bp["lmx"])
+        calls["attention mha_flash prefill"] = lambda: ops.mha_flash(
+            ap["q"], ap["k"], ap["v"], causal=True)
         for what, fn in calls.items():
             if not what.startswith("trace"):   # the trace phase warmed these
                 fn()
             res, host_s = self.run_timed(fn)
             t0 = time.perf_counter()
-            kernels = {k: ms for k, (ms, _) in device_kernels(fn).items()}
+            if what.startswith("attention"):
+                # one K7 launch, which the profiler does not record
+                # (PERF.md): CUDA events around the call time that launch
+                before = LAUNCHES["flash_attention"]
+                kernels, dev_from = {}, "cuda events"
+                dev_s = cuda_ms(fn, reps=1, warmup=0) / 1e3
+                assert LAUNCHES["flash_attention"] - before == 1
+            else:
+                kernels = {k: ms for k, (ms, _) in device_kernels(fn).items()}
+                dev_from = "profiler"
+                dev_s = sum(kernels.values()) / 1e3
+                if not kernels:
+                    raise RuntimeError(f"profile: torch.profiler recorded "
+                                       f"no kernel of {what}")
             prof_s = time.perf_counter() - t0
-            dev_s = sum(kernels.values()) / 1e3
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-            its = res.state.iterations if hasattr(res, "std_error") \
-                else res.iterations
             emit({"phase": "profile", "call": what,
-                  "iterations_max": int(its.max()),
+                  "iterations_max": iterations_of(res),
                   "host_s": host_s, "device_s": dev_s,
+                  "device_s_from": dev_from,
                   "idle_share": 1.0 - dev_s / host_s,
                   "profiled_call_s": prof_s,
                   "kernels_ms": dict(top)})
+
+    def phase_yardsticks(self):
+        """The Triton library yardsticks, last: each line's library time,
+        its first call (a Triton build for BSR @ dense) in the wall
+        seconds."""
+        for name, thunk in self.late_library:
+            t0 = time.perf_counter()
+            ms = thunk()
+            self.kernels[name]["library_ms"] = ms
+            emit({"phase": "yardsticks", "name": name, "library_ms": ms,
+                  "library_timing_s": time.perf_counter() - t0})
 
     def _count(self, launches):
         for name, cnt in launches.items():

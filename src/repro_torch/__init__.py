@@ -3,7 +3,7 @@ forms), slice by slice; ``repro`` stays the reference it is held to.
 
 ``core`` holds the operators, Lanczos, the Alg. 5 recurrence, the
 matrix-function and block-Krylov brackets, the Alg. 2 solver and the
-stochastic trace; ``kernels`` the hand-written Hopper kernels K1-K5 with
+stochastic trace; ``kernels`` the hand-written Hopper kernels K1-K7 with
 their plain PyTorch versions; ``data`` numpy matrix builders; and
 ``convert`` numpy leaves to the port's states. Importing it needs no
 GPU, ``nvcc`` or ``triton``: the kernels build at first CUDA use.

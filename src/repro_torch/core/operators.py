@@ -49,6 +49,14 @@ def _broadcast_shape(a, b) -> tuple:
     return tuple(out)
 
 
+def _promoted(a: torch.Tensor, x: torch.Tensor) -> tuple:
+    """``a`` and ``x`` in their common dtype. ``torch.einsum`` refuses
+    mixed float types where the reference's ``jnp.einsum`` promotes them
+    (an f32 matrix against f64 vectors computes in f64)."""
+    dt = torch.promote_types(a.dtype, x.dtype)
+    return a.to(dt), x.to(dt)
+
+
 @dataclasses.dataclass(frozen=True)
 class Dense:
     """Explicit dense symmetric matrix, shape (..., N, N)."""
@@ -59,7 +67,8 @@ class Dense:
         return self.a.shape[-1]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("...ij,...j->...i", self.a, x)
+        a, x = _promoted(self.a, x)
+        return torch.einsum("...ij,...j->...i", a, x)
 
     def diag(self) -> torch.Tensor:
         return torch.diagonal(self.a, dim1=-2, dim2=-1)
@@ -404,7 +413,8 @@ def matvec_mrhs(op, x: torch.Tensor) -> torch.Tensor:
     local to each lane."""
     if isinstance(op, Dense):
         # lanes broadcast against op.a's batch dims; b rides the product
-        return torch.einsum("...ij,...bj->...bi", op.a, x)
+        a, x = _promoted(op.a, x)
+        return torch.einsum("...ij,...bj->...bi", a, x)
     if isinstance(op, SparseCOO):
         if op.rows.ndim == 1:
             return op.matvec(x)  # a shared pattern broadcasts over (..., b)

@@ -122,7 +122,7 @@ template <typename TD>
 int bell_matvec_mrhs(const void* const* ins, void* const* outs, const long long* dims,
                      void* stream) {
   const long long groups = dims[0], rows = dims[1], nr = dims[2], kb = dims[3], bs = dims[4];
-  if (groups <= 0 || rows <= 0 || nr <= 0 || bs <= 0) return (int)cudaGetLastError();
+  if (groups <= 0 || rows <= 0 || nr <= 0 || bs <= 0) return (int)cudaErrorInvalidValue;
   const long long itiles = (bs + kTN - 1) / kTN;
   const long long mtiles = (rows + kTM - 1) / kTM;
   if (mtiles > 65535 || groups > 65535 || nr * itiles > 2147483647LL)

@@ -1,4 +1,4 @@
-"""The dispatch layer over the five hand-written kernels.
+"""The dispatch layer over the seven hand-written kernels.
 
 Each entry point takes tensors on one device:
 
@@ -9,18 +9,23 @@ Each entry point takes tensors on one device:
 
 ``LAUNCHES`` counts kernel launches, one per call that launched its
 kernel (a fused step counts once, though it is a matvec launch and a
-tail launch), so a run can show that it went through the kernels.
+tail launch), so a run can show that it went through the kernels. A
+call on the card launches or raises, empty inputs included, so each
+count it adds is a launch.
 """
 from __future__ import annotations
 
 import torch
 
+from . import bilinear_matvec as _bmv
+from . import flash_attention as _fa
 from . import gql_update as _gu
 from . import lanczos_step as _ls
 from . import spmv_bell as _sb
 
 LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
-            "fused_step_bell": 0, "bell_matvec_mrhs": 0}
+            "fused_step_bell": 0, "bell_matvec_mrhs": 0, "fused_matvec": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -91,3 +96,50 @@ def fused_step_bell(data, cols, s_out, s_in, t, v, v_prev, scalars):
     LAUNCHES["fused_step_bell"] += 1
     return out
 
+
+def fused_matvec(a, x, *, bm: int = 128, bn: int = 128):
+    """K6: ``(y, alpha) = (A @ x, x^T A x)`` over independent systems,
+    a (B, N, N) f32 or bf16 and x (B, N); f32 results with f32
+    accumulation. Raises ``ValueError`` unless x has a's B.
+
+    ``bm``/``bn`` are the reference's tile sizes, kept for its
+    signature. Neither path uses them: the plain version is one einsum,
+    and the card's kernel tiles by its own layout (a warp per row, 32
+    rows of one system per CTA), so they change nothing in the result.
+    """
+    if not _on_cuda(x, "fused_matvec"):
+        return _bmv.fused_matvec_plain(a, x)
+    out = _bmv.fused_matvec_cuda(a, x)
+    LAUNCHES["fused_matvec"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bt: int = 128,
+                    bs: int = 128):
+    """K7: streaming attention forward over q (BH, T, D), k/v (BH, S, D)
+    in f32 or bf16; the result is in q's dtype, accumulated in f32.
+
+    ``bt``/``bs`` are the reference's tile sizes, kept for its
+    signature. Neither path uses them: the plain version holds the whole
+    score matrix, and the card's kernel tiles by its own layout (64
+    query rows per CTA; 64-key tiles for bf16, 32-key tiles for f32),
+    so they change nothing in the result.
+    """
+    if not _on_cuda(q, "flash_attention"):
+        return _fa.flash_attention_plain(q, k, v, causal=causal)
+    out = _fa.flash_attention_cuda(q, k, v, causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def mha_flash(q, k, v, *, causal: bool = True, bt: int = 128,
+              bs: int = 128):
+    """Multi-head K7: q (B, T, H, D), k/v (B, S, Hkv, D) with H a
+    multiple of Hkv; one launch on the card (counted under
+    ``"flash_attention"``), the reference's repeat-and-flatten on the
+    CPU. ``bt``/``bs`` as in :func:`flash_attention`."""
+    on_cuda = _on_cuda(q, "mha_flash")
+    out = _fa.mha_flash(q, k, v, causal=causal, bt=bt, bs=bs)
+    if on_cuda:
+        LAUNCHES["flash_attention"] += 1
+    return out

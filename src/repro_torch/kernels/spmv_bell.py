@@ -145,6 +145,9 @@ def bell_matvec_mrhs_cuda(data: torch.Tensor, cols: torch.Tensor,
     for name, t in (("data", data), ("cols", cols)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
+    if x.numel() == 0:
+        raise ValueError(f"bell_matvec_mrhs_cuda launches on nonempty "
+                         f"inputs only, got x {tuple(x.shape)}")
     lanes, b, n = x.shape
     xf = x.to(torch.float32).contiguous()
     if data.ndim == 4:      # one table: every row of every lane in one GEMM

@@ -1,4 +1,4 @@
-"""K1-K5 on the card: each hand-written CUDA kernel against its plain
+"""K1-K7 on the card: each hand-written CUDA kernel against its plain
 PyTorch version on the same tensors, at small ragged shapes (lane counts
 that are not a multiple of the lane block, N that is not a multiple of
 the row tile or the staged column chunk), with breakdown and guard lanes.
@@ -10,8 +10,11 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: 1e-12 relative for the f64 kernels (FMA contraction and
-summation order), 1e-5 for the f32 paths (the K2 and K5 contract is f32
-accumulation).
+summation order), 1e-5 for the f32 paths (the K2, K5 and K6 contract is
+f32 accumulation), 3e-2 for K6 with bf16 A. K7 is held row by row, each
+(head, query row) at its own norm (``_row_close``): 1e-2 for bf16 inputs
+(the output is rounded to bf16, 2^-9 relative), 2e-4 for f32 inputs.
+Empty inputs on the card raise: a call launches its kernel or raises.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import BIFSolver, Dense, bell_from_dense  # noqa: E402
+from repro_torch.kernels import bilinear_matvec as tbm  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import gql_update as tgu  # noqa: E402
 from repro_torch.kernels import lanczos_step as tls  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -56,6 +61,18 @@ def _close(got, want, rtol, what, floor=0.0):
                     floor, 1e-300)
         np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * scale,
                                    equal_nan=True, err_msg=f"{what}[{i}]")
+
+
+def _row_close(got, want, tol, what):
+    """K7's measure: ||g - w||_2 / ||w||_2 along the last axis (a query
+    row of one head), the largest over rows, within ``tol``."""
+    g, w = got.double().cpu(), want.double().cpu()
+    rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-300)
+                 ).max())
+    assert rel <= tol, f"{what}: a row is {rel:.3g} off, more than {tol}"
+
+
+K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 
 
 def _flat(out):
@@ -169,6 +186,19 @@ def test_k5_matches_plain(cuda, per_lane, x_dtype, lanes, b, bs):
     _close([got], [tsb.bell_matvec_mrhs_plain(data, cols, x)], 1e-5, "K5")
     again = ops.bell_matvec_mrhs(data, cols, x)
     assert torch.equal(got, again)      # no atomics: the same bits
+
+
+def test_k5_refuses_empty_inputs(cuda):
+    """No lane, or no row of a lane: the card raises rather than count a
+    launch that did not happen."""
+    data, cols, _ = tsb.dense_to_bell(_spd(64, seed=3), bs=32)
+    data = torch.as_tensor(data, device=cuda)
+    cols = torch.as_tensor(cols, device=cuda)
+    before = ops.LAUNCHES["bell_matvec_mrhs"]
+    for shape in ((0, 2, 64), (3, 0, 64)):
+        with pytest.raises(ValueError, match="nonempty"):
+            ops.bell_matvec_mrhs(data, cols, torch.zeros(shape, device=cuda))
+    assert ops.LAUNCHES["bell_matvec_mrhs"] == before
 
 
 def test_k5_through_matvec_mrhs_with_ragged_n(cuda):
@@ -298,3 +328,140 @@ def test_launchers_reject_what_the_kernels_do_not_take(cuda):
                              shared_a=True)
     with pytest.raises(ValueError):      # per-lane A of the wrong shape
         ops.fused_step_dense(a, one, one, one, v, v, sc, shared_a=False)
+
+
+@pytest.mark.parametrize("b,n,a_dtype,x_dtype", [
+    (2, 4177, torch.float32, torch.float32),    # rows start 4-byte aligned
+    (3, 4177, torch.float32, torch.float64),
+    (1, 300, torch.float32, torch.float32),
+    (2, 1001, torch.bfloat16, torch.float32),   # rows start 2-byte aligned
+    (1, 4177, torch.bfloat16, torch.float64),
+    (4, 7, torch.float32, torch.float32)])      # shorter than one vector
+def test_k6_matches_plain(cuda, b, n, a_dtype, x_dtype):
+    rng = np.random.default_rng(n + b)
+    a = rng.standard_normal((b, n, n)).astype(np.float32)
+    a = torch.as_tensor((a + np.swapaxes(a, 1, 2)) / 2, device=cuda
+                        ).to(a_dtype)
+    x = torch.as_tensor(rng.standard_normal((b, n)), dtype=x_dtype,
+                        device=cuda)
+    before = ops.LAUNCHES["fused_matvec"]
+    y, alpha = ops.fused_matvec(a, x)
+    assert ops.LAUNCHES["fused_matvec"] == before + 1
+    assert y.dtype == alpha.dtype == torch.float32
+    assert tuple(y.shape) == (b, n) and tuple(alpha.shape) == (b,)
+    yw, alw = tbm.fused_matvec_plain(a, x)
+    tol = 1e-5 if a_dtype == torch.float32 else 3e-2
+    _close([y], [yw], tol, "K6 y")
+    _close([alpha], [alw], tol * 5, "K6 alpha")
+    y2, alpha2 = ops.fused_matvec(a, x)
+    assert torch.equal(y, y2) and torch.equal(alpha, alpha2)  # no atomics
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(1, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="fused_matvec wants x"):
+        ops.fused_matvec(a, torch.zeros(3, 8, device=cuda))
+    with pytest.raises(TypeError):
+        ops.fused_matvec(a.double(), torch.zeros(1, 8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_matvec(torch.zeros(1, 8, 16, device=cuda)[:, :, :8],
+                         torch.zeros(1, 8, device=cuda))
+    before = ops.LAUNCHES["fused_matvec"]
+    with pytest.raises(ValueError, match="nonempty"):     # no system
+        ops.fused_matvec(torch.zeros(0, 8, 8, device=cuda),
+                         torch.zeros(0, 8, device=cuda))
+    assert ops.LAUNCHES["fused_matvec"] == before
+
+
+def test_k6_drives_the_batched_solver(cuda):
+    """MatvecFn over fused_matvec on 'pallas' (K6 + K1): K6 launches once
+    at init and once per step of the longest lane, and the discrete
+    outcomes match the same solve on the CPU's plain path."""
+    from repro_torch.core import MatvecFn
+    rng = np.random.default_rng(8)
+    n, b = 300, 5
+    k = _spd(n, seed=8, kappa=100.0)
+    a32 = np.stack([k + 0.01 * (i + 1) * np.eye(n)
+                    for i in range(b)]).astype(np.float32)
+    w = np.linalg.eigvalsh(a32.astype(np.float64))
+    u = rng.standard_normal((b, n))
+    iv = dict(lam_min=0.9 * w[:, 0], lam_max=1.1 * w[:, -1])
+    s = BIFSolver.create(max_iters=80, rtol=1e-4, backend="pallas")
+
+    def op(dev):
+        a = torch.as_tensor(a32, device=dev)
+        return MatvecFn(fn=lambda x: ops.fused_matvec(a, x)[0], n_static=n,
+                        diag_vals=torch.diagonal(a, dim1=1, dim2=2))
+
+    def ivs(dev):
+        return {k_: torch.as_tensor(v, device=dev) for k_, v in iv.items()}
+
+    before = ops.LAUNCHES["fused_matvec"]
+    res = s.solve_batch(op(cuda), torch.as_tensor(u, device=cuda),
+                        **ivs(cuda))
+    assert ops.LAUNCHES["fused_matvec"] - before == int(res.iterations.max())
+    cpu = s.solve_batch(op("cpu"), torch.as_tensor(u), **ivs("cpu"))
+    assert bool(res.certified.all()) and torch.equal(res.certified.cpu(),
+                                                     cpu.certified)
+    assert int((res.iterations.cpu() - cpu.iterations).abs().max()) <= 1
+    _close([res.lower, res.upper], [cpu.lower, cpu.upper], 1e-5,
+           "K6 path bracket")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,causal", [
+    (100, 100, True), (100, 100, False),   # a ragged query and key tile
+    (1, 200, False),                       # decode: one query, S = 200
+    (48, 96, True),                        # zero-aligned causal, T != S
+    (130, 200, False)])                    # padded tail of the keys
+def test_k7_matches_plain(cuda, d, dtype, t, s, causal):
+    rng = np.random.default_rng(d + t + s)
+    q, k, v = (torch.as_tensor(rng.standard_normal(sh), dtype=torch.float32,
+                               device=cuda).to(dtype)
+               for sh in ((3, t, d), (3, s, d), (3, s, d)))
+    before = ops.LAUNCHES["flash_attention"]
+    o = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert o.dtype == dtype and tuple(o.shape) == (3, t, d)
+    assert bool(torch.isfinite(o.float()).all())
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    _row_close(o, want, K7_TOL[dtype], "K7")
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_flash_gqa_matches_plain(cuda, dtype):
+    """One launch over (B, T, H, D) views with the kv-head index gives the
+    reference wrapper's repeat-and-flatten result."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.as_tensor(rng.standard_normal(sh), dtype=torch.float32,
+                               device=cuda).to(dtype)
+               for sh in ((2, 70, 8, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+    before = ops.LAUNCHES["flash_attention"]
+    o = ops.mha_flash(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    kr, vr = (x.repeat_interleave(4, dim=2) for x in (k, v))
+    want = tfa.flash_attention_plain(
+        q.transpose(1, 2).reshape(16, 70, 64),
+        kr.transpose(1, 2).reshape(16, 70, 64),
+        vr.transpose(1, 2).reshape(16, 70, 64)).reshape(2, 8, 70, 64
+                                                        ).transpose(1, 2)
+    _row_close(o, want, K7_TOL[dtype], "mha_flash")
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(2, 8, 32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="nonempty"):     # no query row
+        ops.flash_attention(q[:, :0], q, q)
+    with pytest.raises(ValueError, match="nonempty"):
+        ops.mha_flash(torch.zeros(1, 0, 4, 32, device=cuda),
+                      torch.zeros(1, 5, 2, 32, device=cuda),
+                      torch.zeros(1, 5, 2, 32, device=cuda))
+    assert ops.LAUNCHES["flash_attention"] == before

@@ -51,4 +51,5 @@ def test_import_needs_no_gpu_or_compiler():
         or all(isinstance(v, int) for v in repro_torch.LAUNCHES.values())
     assert _build._LIBS == {} or all(_build._LIBS)
     assert {p.name for p in _build.sources()} == {
-        "gql_update.cu", "bell.cu", "dense_step.cu", "bell_mrhs.cu"}
+        "gql_update.cu", "bell.cu", "dense_step.cu", "bell_mrhs.cu",
+        "bilinear_matvec.cu", "flash_attention.cu"}

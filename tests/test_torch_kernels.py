@@ -320,3 +320,28 @@ def test_cuda_launchers_refuse_cpu_tensors():
         tls.fused_step_bell_cuda(torch.zeros(1, 1, 8, 8),
                                  torch.zeros(1, 1, dtype=torch.int32),
                                  one, one, one, v, v, sc)
+
+
+def test_ref_binds_every_oracle_name_to_a_plain_version():
+    """kernels.ref names one oracle per kernel: the reference module's
+    names and the port's three more, each bound to the plain version."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import bilinear_matvec as tbm
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref as tref
+
+    reference = {n for n in dir(jref) if not n.startswith("_")
+                 and callable(getattr(jref, n))
+                 and getattr(getattr(jref, n), "__module__", "")
+                 == jref.__name__}
+    assert reference == {"fused_matvec", "bell_matvec", "gql_update",
+                         "flash_attention"}
+    assert set(tref.__all__) == reference | {
+        "bell_matvec_mrhs", "fused_step_dense", "fused_step_bell"}
+    assert tref.fused_matvec is tbm.fused_matvec_plain
+    assert tref.flash_attention is tfa.flash_attention_plain
+    assert tref.gql_update is tgu.gql_update_plain
+    assert tref.bell_matvec is tsb.bell_matvec_plain
+    assert tref.bell_matvec_mrhs is tsb.bell_matvec_mrhs_plain
+    assert tref.fused_step_dense is tls.fused_step_dense_plain
+    assert tref.fused_step_bell is tls.fused_step_bell_plain
