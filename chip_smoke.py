@@ -10,10 +10,14 @@ It runs every phase, in order, each printing one JSON line:
   3. kernels  -- K1-K7 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
-                 the least time the card could take (bound);
+                 the least time the card could take (bound); K3 also on a
+                 mid-solve state with its live-row count (the bound counts
+                 the live rows), with its matvec and tail launches timed
+                 apart; K7 with its route and its TFLOP/s;
   4. dense    -- RBF kernel at Abalone's N = 4177 (paper Table 1), K = 64
-                 lanes: solve_batch (fused, reorth), a greedy-MAP argmax
-                 round over stacked masks (fused), judge_batch (pallas);
+                 lanes: solve_batch (fused, reorth; every K3 launch gets the
+                 live-row count), a greedy-MAP argmax round over stacked
+                 masks (fused), judge_batch (pallas);
   5. sparse   -- ring-lattice graph Laplacian, N = 8192 (GR/HEP regime),
                  blocked-ELL bs = 128, f32 data, K = 64 lanes of f64
                  queries: solve_batch on the fused (K4) and pallas (K2 +
@@ -32,10 +36,11 @@ It runs every phase, in order, each printing one JSON line:
                  dense-solve truth;
   8. attention -- one attention layer of llama3-405b (128 query heads over
                  8 kv heads, head width 128, bf16): mha_flash over a 4096-
-                 token causal prefill, a decode-shaped call (one query over
-                 the 4096 keys) and an f32 call over 16 heads, each against
-                 the plain version on the card row by row, and the same
-                 measure on planted faults, which it must catch;
+                 token causal prefill (which must take the wgmma route), a
+                 decode-shaped call (one query over the 4096 keys) and an
+                 f32 call over 16 heads, each against the plain version on
+                 the card row by row, and the same measure on planted
+                 faults, which it must catch;
   9. coo      -- two SparseCOO matvecs on the card give identical bits;
  10. profile  -- each path call again, warm: host seconds beside the
                  device time of every kernel it launched (torch.profiler;
@@ -175,6 +180,14 @@ def device_kernels(fn) -> dict:
         ms, count = out.get(name, (0.0, 0))
         out[name] = (ms + e.duration_ns() / 1e6, count + 1)
     return out
+
+
+def per_launch_ms(fn, reps: int = 5) -> dict:
+    """Device milliseconds per launch of each kernel that ``fn`` launches,
+    over ``reps`` calls after one warm-up (torch.profiler)."""
+    fn()
+    kernels = device_kernels(lambda: [fn() for _ in range(reps)])
+    return {k: ms / count for k, (ms, count) in kernels.items()}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -502,7 +515,7 @@ class Smoke:
 
     def _kernel_line(self, name, route_src, replaces, got, want, tol, why,
                      kernel_ms, plain_ms, bound_ms, bound_by, library_ms,
-                     fn, library_note=None, err=errors):
+                     fn, library_note=None, err=errors, extra=None):
         """One kernels line. ``library_ms`` may be a thunk: a library call
         that runs Triton kernels (BSR @ dense) is timed in the last phase,
         because after one, the profiler records nothing of a call that
@@ -524,6 +537,7 @@ class Smoke:
                 "cuda_kernels_per_call": per_call}
         if library_note:
             line["library_covers"] = library_note
+        line.update(extra or {})
         emit(line)
         assert rel_err <= tol, f"{name}: rel err {rel_err} > {tol}"
         self.kernels[name] = {
@@ -570,7 +584,8 @@ class Smoke:
             cuda_ms(lambda: gu.gql_update_plain(*k1_in)), bms, bby, None,
             lambda: ops.gql_update(*k1_in))
 
-        # K3 with the banked basis (the fused solve_batch path)
+        # K3 with the banked basis (the fused solve_batch path), at step 3
+        # with all M = 161 rows read (no live-row count: PR 13's line)
         args = (a, one, one, zero, v, vp, scalars, basis)
         got = flatten_out(ops.fused_step_dense(*args, shared_a=True))
         want = flatten_out(ls.fused_step_dense_plain(*args, shared_a=True))
@@ -579,15 +594,21 @@ class Smoke:
         flops = 2 * K * n * n + 4 * K * m * n + 10 * K * n
         bms, bby = bound(nb, flops, torch.float64)
         xs = v.clone()
+        k3_parts = per_launch_ms(lambda: ops.fused_step_dense(
+            *args, shared_a=True))
+        matmul_ms = cuda_ms(lambda: torch.matmul(xs, a.T))
         self._kernel_line(
             "fused_step_dense", "src/repro_torch/kernels/csrc/dense_step.cu",
             "src/repro/kernels/lanczos_step.py:135", got, want, 1e-12,
             "f64; summation order over N = 4177 and the basis, FMA",
             cuda_ms(lambda: ops.fused_step_dense(*args, shared_a=True)),
             cuda_ms(lambda: ls.fused_step_dense_plain(*args, shared_a=True)),
-            bms, bby, cuda_ms(lambda: torch.matmul(xs, a.T)),
+            bms, bby, matmul_ms,
             lambda: ops.fused_step_dense(*args, shared_a=True),
-            "the matvec (A @ x for 64 lanes, torch.matmul) only")
+            "the matvec (A @ x for 64 lanes, torch.matmul) only",
+            extra={"basis_rows_read": m, "per_launch_ms": k3_parts,
+                   "matmul_64_lanes_ms": matmul_ms})
+        self.k3_mid_solve(d, a, one, zero, lmn, lmx)
         # K3 without a basis, on the masked sandwich of the argmax round
         masks, um, _, _ = self.argmax_problem()
         base, so, si, tt = fused_operands(stack_masks(self.rt.Dense(a),
@@ -722,22 +743,71 @@ class Smoke:
         bms, bby = bound(nbytes(q, k, v) + nbytes(*got), flops,
                          torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        k7_ms = cuda_ms(lambda: ops.mha_flash(q, k, v, causal=True), reps=5,
+                        warmup=1)
+        from repro_torch.kernels import flash_attention as fa
+
         self._kernel_line(
             "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:67", got, want,
             ATTN_TOL[torch.bfloat16],
             "bf16 inputs and output, f32 accumulation in another order; "
             "per (head, query row)",
-            cuda_ms(lambda: ops.mha_flash(q, k, v, causal=True), reps=5,
-                    warmup=1),
+            k7_ms,
             cuda_ms(lambda: mha_plain(q, k, v, True), reps=3, warmup=1),
             bms, bby, cuda_ms(lambda: sdpa_gqa(qt, kt, vt), reps=5,
                               warmup=1),
             lambda: ops.mha_flash(q, k, v, causal=True),
             "F.scaled_dot_product_attention, causal, on the same bf16 "
-            "tensors with the kv heads shared (enable_gqa)", row_errors)
+            "tensors with the kv heads shared (enable_gqa)", row_errors,
+            extra={"route": fa.route(q.dtype, HEAD_DIM, TOKENS),
+                   "tflops": flops / k7_ms / 1e9})
         emit({"phase": "kernels", "ported": sorted(self.kernels)})
         assert sorted(self.kernels) == sorted(KERNELS)
+
+    def k3_mid_solve(self, d, a, one, zero, lmn, lmx):
+        """K3 as the fused solve calls it mid-solve: the state after 56
+        steps, with the live-row count min(56 + 2, M) = 58, against the
+        plain version over all M rows (the rows past the count are zeros);
+        its bound counts the live rows only."""
+        from repro_torch.core import BIFSolver
+        from repro_torch.kernels import lanczos_step as ls
+        from repro_torch.kernels import ops
+        s = BIFSolver.create(**DENSE, reorth=True)
+        st = s.step_n(s.init_state(self.rt.Dense(d["a"]), d["u"],
+                                   lam_min=d["lmn"], lam_max=d["lmx"]), 56)
+        g = st.st
+        rows = torch.clamp(st.step + 2, max=st.basis.shape[-2]).to(
+            torch.int32)
+        live = int(rows)
+        basis = st.basis
+        assert int(st.step) == 56 and live == 58
+        assert int(torch.count_nonzero(basis[:, live:])) == 0
+        scalars = (g.lz.beta, g.g, g.c, g.delta, g.delta_lr, g.delta_rr,
+                   lmn, lmx)
+        args = (a, one, one, zero, g.lz.v, g.lz.v_prev, scalars, basis)
+        got = flatten_out(ops.fused_step_dense(*args, shared_a=True,
+                                               rows=rows))
+        want = flatten_out(ls.fused_step_dense_plain(*args, shared_a=True))
+        e_abs, e_rel = errors(got, want)
+        n = a.shape[0]
+        nb = nbytes(a, g.lz.v, g.lz.v_prev, *scalars) \
+            + 8 * K * live * n + nbytes(*got)
+        bms, bby = bound(nb, 2 * K * n * n + 4 * K * live * n + 10 * K * n,
+                         torch.float64)
+        emit({"phase": "kernels", "name": "fused_step_dense[mid-solve]",
+              "step": int(st.step), "live_rows": live,
+              "basis_rows": int(basis.shape[1]),
+              "max_abs_err": e_abs, "max_rel_err": e_rel,
+              "tolerance": 1e-12,
+              "kernel_ms": cuda_ms(lambda: ops.fused_step_dense(
+                  *args, shared_a=True, rows=rows)),
+              "plain_ms": cuda_ms(lambda: ls.fused_step_dense_plain(
+                  *args, shared_a=True)),
+              "bound_ms": bms, "bound_by": bby,
+              "per_launch_ms": per_launch_ms(lambda: ops.fused_step_dense(
+                  *args, shared_a=True, rows=rows))})
+        assert e_rel <= 1e-12, f"K3 mid-solve: rel err {e_rel}"
 
     def argmax_problem(self):
         """A greedy-MAP scoring round: selected set Y (512 random items),
@@ -854,10 +924,12 @@ class Smoke:
         def cfg(backend, **kw):
             return BIFSolver.create(**DENSE, backend=backend, **kw)
 
+        from repro_torch.kernels.lanczos_step import ROUTES as K3_ROUTES
         reset_launches()
         solve_f, t_solve = self.path_call(lambda: cfg(
             "fused", reorth=True).solve_batch(op, u, **iv))
         k3_before = LAUNCHES["fused_step_dense"]
+        k3_live = K3_ROUTES["live_rows"]
         arg_f, t_arg = self.path_call(lambda: cfg("fused").judge_argmax(
             mop, um, shift=shift, scale=-1.0, **iv))
         k3_masked = LAUNCHES["fused_step_dense"] - k3_before
@@ -895,6 +967,10 @@ class Smoke:
                            "certified": bool(arg_f.certified),
                            "truth_index": int(torch.argmax(score)),
                            "masked_k3_launches": k3_masked},
+                # K3 launches of the reorth solve that read only the live
+                # basis rows (the count passed on the card)
+                "k3_live_row_launches": k3_live,
+                "k3_routes": dict(K3_ROUTES),
                 "seconds": {"solve_batch_fused": t_solve,
                             "solve_batch_reference": t_solve_r,
                             "judge_argmax_fused": t_arg,
@@ -914,6 +990,9 @@ class Smoke:
         assert torch.equal(judge_p.certified, judge_r.certified)
         assert launches["fused_step_dense"] > 0 and launches["gql_update"] > 0
         assert k3_masked > 0, "the argmax round did not reach K3"
+        assert k3_live == k3_before > 0, \
+            "the reorth solve did not pass its live-row count to K3"
+        assert K3_ROUTES["dmma"] == launches["fused_step_dense"]
         self._count(launches)
 
     def phase_sparse(self):
@@ -1169,12 +1248,16 @@ class Smoke:
         from repro_torch.kernels.flash_attention import flash_attention_plain
         ap = self.attention_problem()
         q, k, v = ap["q"], ap["k"], ap["v"]
+        from repro_torch.kernels.flash_attention import ROUTES as K7_ROUTES
         reset_launches()
         o, t_pre = self.path_call(lambda: ops.mha_flash(q, k, v, causal=True))
+        routes = {"prefill": dict(K7_ROUTES)}
         o_dec, t_dec = self.path_call(lambda: ops.mha_flash(
             q[:, -1:], k, v, causal=False))
+        routes["decode"] = dict(K7_ROUTES)
         o32, t_32 = self.path_call(lambda: ops.flash_attention(
             ap["q32"], ap["k32"], ap["v32"], causal=True))
+        routes["f32"] = dict(K7_ROUTES)
         launches = dict(LAUNCHES)
         want_pre = mha_plain(q, k, v, True)
         checks = {
@@ -1189,7 +1272,8 @@ class Smoke:
                 "kv": list(k.shape), "dtype": "bfloat16",
                 "f32_call": list(ap["q32"].shape), "launches": launches,
                 "seconds": {"prefill": t_pre, "decode": t_dec, "f32": t_32},
-                "error_measure": "row_errors", "planted_faults": faults}
+                "error_measure": "row_errors", "planted_faults": faults,
+                "routes_after": routes}
         for what, (got, want, tol) in checks.items():
             abs_err, rel_err = row_errors([got], [want])
             line[what] = {"shape": list(got.shape),
@@ -1207,6 +1291,10 @@ class Smoke:
             assert faults[what] > ATTN_TOL[torch.bfloat16], \
                 f"the K7 check would pass a kernel with {what}"
         assert launches["flash_attention"] == 3
+        assert routes["prefill"] == {"wgmma": 1, "mma_sync": 0,
+                                     "fma_f32": 0}, "prefill not on wgmma"
+        assert routes["decode"]["mma_sync"] == 1
+        assert routes["f32"]["fma_f32"] == 1
         self._count(launches)
 
     def phase_coo(self):

@@ -280,14 +280,16 @@ class BIFSolver:
 
     def _stepper(self):
         """One-iteration GQL step per ``config.backend``:
-        ``stepfn(op, st, lam_min, lam_max, basis)``. 'fused' runs the
-        whole iteration as one fused step (K3/K4); 'reference'/'pallas'
-        compose ``gql.gql_step`` with the configured recurrence. With
+        ``stepfn(op, st, lam_min, lam_max, basis, rows=None)``. 'fused'
+        runs the whole iteration as one fused step (K3/K4), with K3's
+        reorth reading only the ``rows`` live basis rows;
+        'reference'/'pallas' compose ``gql.gql_step`` with the configured
+        recurrence and ignore ``rows``. With
         ``block_size > 1`` every backend steps the block recurrence; the
         backend still picks the operator's matvec through
         ``configure_backend`` (K5 for SparseBELL on 'pallas')."""
         if self.config.block_size > 1:
-            def block_step(op, st, lam_min, lam_max, basis=None):
+            def block_step(op, st, lam_min, lam_max, basis=None, rows=None):
                 return _block.block_step(op, st, lam_min, lam_max)
 
             return block_step
@@ -296,7 +298,7 @@ class BIFSolver:
             return gql_step_fused
         rec = self._recurrence()
 
-        def composed_step(op, st, lam_min, lam_max, basis=None):
+        def composed_step(op, st, lam_min, lam_max, basis=None, rows=None):
             return _gql.gql_step(op, st, lam_min, lam_max, basis=basis,
                                  recurrence=rec)
 
@@ -418,8 +420,16 @@ class BIFSolver:
                  stepfn):
         """One unconditional step + reorth-basis / coefficient-history
         bookkeeping (no freezing). The basis row index clamps to the last
-        row, as the reference's ``dynamic_update_index_in_dim`` does."""
-        st1 = stepfn(op, st, lam_min, lam_max, basis)
+        row, as the reference's ``dynamic_update_index_in_dim`` does.
+
+        Before step ``step`` only basis rows ``0 .. min(step + 2, M) - 1``
+        can be non-zero (rows 0 and 1 at init, row ``min(s + 2, M - 1)``
+        after step s), so every stepper gets that count as a device tensor:
+        the fused one hands it to K3, which reads the live rows only, with
+        no host read; the others ignore it."""
+        rows = None if basis is None else torch.clamp(
+            step + 2, max=basis.shape[-2]).to(torch.int32)
+        st1 = stepfn(op, st, lam_min, lam_max, basis, rows=rows)
         if coeffs is not None:
             coeffs = _matfun.update_coeffs(coeffs, st, st1)
         if basis is None:

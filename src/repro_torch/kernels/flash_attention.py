@@ -9,9 +9,13 @@ T != S), masked scores at ``-1e30`` and the row sum clamped at 1e-30, as
 the reference kernel does.
 
 ``flash_attention_plain`` is ``repro/kernels/ref.py:37-49`` in PyTorch,
-the CPU path and the oracle of the CUDA kernel; ``flash_attention_cuda``
-launches ``csrc/flash_attention.cu``: tensor-core tiles (``mma.sync``)
-for bf16, CUDA-core f32 FMA for f32 (never TF32). ``mha_flash`` is the multi-head
+the CPU path and the oracle of the CUDA kernels; ``flash_attention_cuda``
+launches ``csrc/flash_attention.cu``, one of three hand-written kernels
+chosen by type and shape (``route``): bf16 at D = 64 or 128 with at least
+one 64-row query tile takes ``wgmma`` with TMA loads (the prefill), other
+bf16 calls (D = 32, and the decode call's single query row) take the
+``mma.sync`` kernel, and f32 takes CUDA-core f32 FMA (never TF32).
+``ROUTES`` counts each route's launches. ``mha_flash`` is the multi-head
 wrapper, not a kernel: q ``(B, T, H, D)``, k/v ``(B, S, Hkv, D)`` with
 grouped-query heads. On the CPU it repeats the kv heads and flattens
 (B, H), as the reference does; on the card it hands the kernel the
@@ -28,7 +32,21 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
+HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernels are built for
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_MIN_ROWS = 64        # one query tile of a consumer warpgroup
+
+ROUTES = {"wgmma": 0, "mma_sync": 0, "fma_f32": 0}
+
+
+def route(dtype: torch.dtype, d: int, t_len: int) -> str:
+    """The kernel that takes a call of head width ``d`` over ``t_len``
+    query rows: routing by shape between hand-written kernels."""
+    if dtype == torch.float32:
+        return "fma_f32"
+    if d in WGMMA_HEAD_DIMS and t_len >= WGMMA_MIN_ROWS:
+        return "wgmma"
+    return "mma_sync"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,10 +80,12 @@ def _check_heads(q, k, v, layout: str) -> None:
 
 def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when its rows along D are contiguous and start on
-    16-byte boundaries (the bf16 kernel loads them 16 bytes at a time),
-    else a fresh contiguous copy."""
+    16-byte boundaries (the bf16 kernels load them 16 bytes at a time, and
+    a TMA tensor map takes only such strides, none of them 0), else a
+    fresh contiguous copy."""
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
-            st * x.element_size() % 16 == 0 for st in x.stride()[:-1]):
+            st > 0 and st * x.element_size() % 16 == 0
+            for st in x.stride()[:-1]):
         return x
     return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
 
@@ -97,8 +117,10 @@ def _launch(q, k, v, o, causal: bool) -> torch.Tensor:
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, o) for i in (0, 1, 2)))
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 \
-        else lib.flash_attention_bf16
+    which = route(q.dtype, d, t_len)
+    fn = {"fma_f32": lib.flash_attention_f32,
+          "mma_sync": lib.flash_attention_bf16,
+          "wgmma": lib.flash_attention_bf16_wgmma}[which]
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_longlong),
@@ -108,7 +130,8 @@ def _launch(q, k, v, o, causal: bool) -> torch.Tensor:
     with torch.cuda.device(q.device):
         rc = fn(_build.ptr_array([q, k, v]), _build.ptr_array([o]), dims,
                 strides, 1.0 / d ** 0.5, _build.stream_of(q))
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({which})")
+    ROUTES[which] += 1
     return o
 
 

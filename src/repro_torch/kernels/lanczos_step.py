@@ -15,6 +15,12 @@ the same ``lanczos_assemble`` / ``gql_assemble`` as the reference path.
 Beside each CUDA launcher sits its plain PyTorch version
 (``fused_step_dense_plain``, ``fused_step_bell_plain``), the CPU path and
 the kernels' oracle; ``kernels.ops`` picks by device.
+
+K3 takes an optional device-side count of live basis rows (``rows``, an
+int32 tensor on the card): the kernel's tail then reads basis rows
+``[0, rows)`` only. The plain version always reads all M rows; the rows
+past the count are zeros, so it is the oracle of the claim that skipping
+them changes nothing.
 """
 from __future__ import annotations
 
@@ -48,10 +54,11 @@ def _tail(acc, s_out, t, v, v_prev, basis, scalars):
 
 
 def fused_step_dense_plain(a, s_out, s_in, t, v, v_prev, scalars,
-                           basis=None, *, shared_a: bool):
+                           basis=None, *, shared_a: bool, rows=None):
     """Plain PyTorch version of K3 over (K, N) lanes: ``a`` is (N, N)
     when ``shared_a`` else (K, N, N); ``scalars`` the 8 (K,) operands in
-    ``SCALAR_ORDER``; ``basis`` optional (K, M, N)."""
+    ``SCALAR_ORDER``; ``basis`` optional (K, M, N). ``rows`` is accepted
+    for the kernel's signature and not read: all M basis rows count."""
     x = s_in * v
     eq = "ij,kj->ki" if shared_a else "kij,kj->ki"
     acc = torch.einsum(eq, a, x)
@@ -107,18 +114,26 @@ def _outputs(v, splits: int = 1):
     return alpha, beta, r, raw, acc
 
 
-# The shared-A matvec of K3 tiles (64 lanes x 32 rows) and walks columns
-# 32 at a time (csrc/dense_step.cu); the column range is split so that
-# about four CTAs per SM are resident. The kernel takes any split count:
+# Launches of K3 by route (csrc/dense_step.cu): "dmma" the shared f64 A
+# on the FP64 tensor cores, "fma_f32" the shared f32 A on the CUDA cores,
+# "lane" a per-lane A; "live_rows" counts the launches whose tail read
+# only the live basis rows (``rows`` given).
+ROUTES = {"dmma": 0, "fma_f32": 0, "lane": 0, "live_rows": 0}
+
+# The shared-A matvecs of K3 tile 64 lanes by 128 rows of A (f64, tensor
+# cores; 1 CTA resident per SM) or by 32 rows (f32, CUDA cores; about 4
+# resident), and walk the columns 32 at a time; the column range is split
+# so that those CTAs fill every SM. The kernel takes any split count:
 # these sizes only steer the choice.
-_TILE_LANES, _TILE_ROWS, _TILE_COLS = 64, 32, 32
+_TILE_LANES, _TILE_COLS = 64, 32
 
 
-def _dense_splits(lanes: int, n: int, device) -> int:
-    tiles = -(-lanes // _TILE_LANES) * -(-n // _TILE_ROWS)
+def _dense_splits(lanes: int, n: int, device, tile_rows: int,
+                  resident: int) -> int:
+    tiles = -(-lanes // _TILE_LANES) * -(-n // tile_rows)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     stages = -(-n // _TILE_COLS)
-    return max(1, min(8, (4 * sms) // tiles, stages // 4))
+    return max(1, min(8, (resident * sms) // tiles, stages // 4))
 
 
 def _bind(fn):
@@ -130,8 +145,10 @@ def _bind(fn):
 
 
 def fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
-                          basis=None, *, shared_a: bool):
-    """Launch K3 (matvec launch + tail launch) on CUDA tensors."""
+                          basis=None, *, shared_a: bool, rows=None):
+    """Launch K3 (matvec launch + tail launch) on CUDA tensors. ``rows``
+    (an int32 tensor of one element on v's device) bounds the tail's basis
+    passes to rows ``[0, rows)``."""
     if v.device.type != "cuda":
         raise ValueError(f"fused_step_dense_cuda needs CUDA tensors, got "
                          f"{v.device}")
@@ -154,16 +171,28 @@ def fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
             raise ValueError(f"basis: {basis.dtype} {tuple(basis.shape)}, "
                              f"want contiguous ({lanes}, M, {n}) {v.dtype}")
         m = basis.shape[1]
+    if rows is not None and (
+            not isinstance(rows, torch.Tensor) or rows.dtype != torch.int32
+            or rows.device != v.device or rows.numel() != 1):
+        raise ValueError(f"rows must be an int32 tensor of one element on "
+                         f"{v.device}, got {rows!r}")
+    dmma = shared_a and v.dtype == torch.float64
     so, so_ls, so_es = _strided(s_out, lanes, n, v)
     si, si_ls, si_es = _strided(s_in, lanes, n, v)
+    if dmma and (si_ls, si_es) != (0, 0):
+        # the tensor-core tile stages s_in beside v: one (K, N) row a lane
+        si = si.contiguous()
+        si_ls, si_es = n, 1
     tt, t_ls, t_es = _strided(t, lanes, n, v)
     sc = _scalars(scalars, lanes, v)
-    splits = _dense_splits(lanes, n, v.device) if shared_a else 1
+    splits = _dense_splits(lanes, n, v.device, 128, 1) if dmma else \
+        _dense_splits(lanes, n, v.device, 32, 4) if shared_a else 1
     alpha, beta, r, raw, acc = _outputs(v, splits)
     ins = [a, so, si, tt, v, v_prev, *sc]
     ptrs = _build.ptr_array(ins)
-    ins_arr = (ctypes.c_void_p * 15)(*ptrs, basis.data_ptr()
-                                     if basis is not None else None)
+    ins_arr = (ctypes.c_void_p * 16)(
+        *ptrs, basis.data_ptr() if basis is not None else None,
+        rows.data_ptr() if rows is not None else None)
     dims = (ctypes.c_longlong * 11)(lanes, n, m, int(shared_a), so_ls,
                                     so_es, si_ls, si_es, t_ls, t_es, splits)
     lib = _build.load("dense_step")
@@ -173,6 +202,9 @@ def fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
         rc = fn(ins_arr, _build.ptr_array([alpha, beta, r, *raw, acc]),
                 dims, _build.stream_of(v))
     _build.check(rc, "fused_step_dense")
+    ROUTES["dmma" if dmma else "fma_f32" if shared_a else "lane"] += 1
+    if rows is not None and basis is not None:
+        ROUTES["live_rows"] += 1
     return alpha, beta, r, tuple(raw)
 
 
@@ -231,12 +263,14 @@ def _flatten_lanes(x, batch, trailing):
     return x.reshape((-1,) + trailing)
 
 
-def gql_step_fused(op, st, lam_min, lam_max, basis=None):
+def gql_step_fused(op, st, lam_min, lam_max, basis=None, rows=None):
     """Drop-in for ``core.gql.gql_step`` that runs the whole iteration as
     one fused step when ``op`` has the sandwich form. SparseCOO, MatvecFn
     and a SparseBELL with a banked basis take the reference composition:
     that routing by operator type is the reference's own semantics
-    (``repro/kernels/lanczos_step.py:299-304``)."""
+    (``repro/kernels/lanczos_step.py:299-304``). ``rows``, the count of
+    live basis rows as an int32 tensor, reaches K3 with the basis; every
+    other route reads the whole basis."""
     from ..core import gql as _gql
     from ..core import lanczos as _lanczos
     from ..core import operators as _operators
@@ -277,7 +311,8 @@ def gql_step_fused(op, st, lam_min, lam_max, basis=None):
         bas = (None if basis is None else _flatten_lanes(
             basis, batch, tuple(basis.shape[-2:])).contiguous())
         alpha, beta_new, r, raw = ops.fused_step_dense(
-            a, *vecs, scalars, bas, shared_a=shared_a)
+            a, *vecs, scalars, bas, shared_a=shared_a,
+            rows=None if bas is None else rows)
     else:
         nr, _, bs, _ = base.data.shape[-4:]
         pad = nr * bs - n

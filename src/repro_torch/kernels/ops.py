@@ -29,8 +29,10 @@ LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and the per-route counts of K3 and K7."""
+    for counts in (LAUNCHES, _ls.ROUTES, _fa.ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -75,13 +77,17 @@ def bell_matvec_mrhs(data, cols, x):
 
 
 def fused_step_dense(a, s_out, s_in, t, v, v_prev, scalars, basis=None, *,
-                     shared_a: bool):
-    """K3: one fused step over (K, N) lanes with a dense A."""
+                     shared_a: bool, rows=None):
+    """K3: one fused step over (K, N) lanes with a dense A. ``rows`` (an
+    int32 tensor of one element, read on the card) bounds the kernel's
+    reorth passes to basis rows ``[0, rows)``; the plain version reads all
+    M rows."""
     if not _on_cuda(v, "fused_step_dense"):
         return _ls.fused_step_dense_plain(a, s_out, s_in, t, v, v_prev,
-                                          scalars, basis, shared_a=shared_a)
+                                          scalars, basis, shared_a=shared_a,
+                                          rows=rows)
     out = _ls.fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
-                                    basis, shared_a=shared_a)
+                                    basis, shared_a=shared_a, rows=rows)
     LAUNCHES["fused_step_dense"] += 1
     return out
 
@@ -121,9 +127,10 @@ def flash_attention(q, k, v, *, causal: bool = True, bt: int = 128,
 
     ``bt``/``bs`` are the reference's tile sizes, kept for its
     signature. Neither path uses them: the plain version holds the whole
-    score matrix, and the card's kernel tiles by its own layout (64
-    query rows per CTA; 64-key tiles for bf16, 32-key tiles for f32),
-    so they change nothing in the result.
+    score matrix, and the card's kernels tile by their own layout (128
+    query rows per CTA on the ``wgmma`` route, 64 on the others; 64-key
+    tiles for bf16, 32-key tiles for f32), so they change nothing in the
+    result.
     """
     if not _on_cuda(q, "flash_attention"):
         return _fa.flash_attention_plain(q, k, v, causal=causal)

@@ -11,7 +11,7 @@ has only PyTorch:
 
 Tolerances: 1e-12 relative for the f64 kernels (FMA contraction and
 summation order), 1e-5 for the f32 paths (the K2, K5 and K6 contract is
-f32 accumulation), 3e-2 for K6 with bf16 A. K7 is held row by row, each
+f32 accumulation; K3 with an f32 A sums in f32), 3e-2 for K6 with bf16 A. K7 is held row by row, each
 (head, query row) at its own norm (``_row_close``): 1e-2 for bf16 inputs
 (the output is rounded to bf16, 2^-9 relative), 2e-4 for f32 inputs.
 Empty inputs on the card raise: a call launches its kernel or raises.
@@ -251,8 +251,13 @@ def test_k5_drives_the_block_solver(cuda):
 @pytest.mark.parametrize("n,lanes,reorth,kind", [
     (37, 5, False, "plain"), (37, 5, True, "plain"),
     (600, 11, True, "plain"), (600, 70, False, "plain"),
+    (4177, 64, True, "plain"),             # the main path's N and lanes
+    (33, 5, True, "plain"), (1000, 63, True, "plain"),   # ragged N
+    (1000, 1, True, "plain"), (1000, 65, False, "plain"),
+    (600, 130, True, "plain"),             # lanes across tile edges
     (45, 3, False, "per_lane"),
-    (45, 9, True, "masked")])
+    (45, 9, True, "masked"), (1000, 65, False, "masked"),
+    (600, 11, True, "f32"), (37, 70, False, "f32")])
 def test_k3_matches_plain(cuda, n, lanes, reorth, kind):
     a_np = _spd(n, seed=n)
     rng = np.random.default_rng(n + lanes)
@@ -278,12 +283,81 @@ def test_k3_matches_plain(cuda, n, lanes, reorth, kind):
                               0.5 * w[0], 2.0 * w[-1], 2, reorth)
     if basis is not None:
         basis = basis.contiguous()
+    if kind == "f32":
+        a, v, vp, basis, one = (None if x is None else x.to(torch.float32)
+                                for x in (a, v, vp, basis, one))
+        sc = tuple(x.to(torch.float32) for x in sc)
+        s_out, s_in, t = one, one, one * 0.0
     args = (a.contiguous(), s_out, s_in, t, v, vp, sc, basis)
+    route = "lane" if not shared else "fma_f32" if kind == "f32" \
+        else "dmma"
     before = ops.LAUNCHES["fused_step_dense"]
+    routed = tls.ROUTES[route]
     got = ops.fused_step_dense(*args, shared_a=shared)
     assert ops.LAUNCHES["fused_step_dense"] == before + 1
+    assert tls.ROUTES[route] == routed + 1
     want = tls.fused_step_dense_plain(*args, shared_a=shared)
-    _close(_flat(got), _flat(want), 1e-12, f"K3 {kind}", floor=1.0)
+    _close(_flat(got), _flat(want), 1e-5 if kind == "f32" else 1e-12,
+           f"K3 {kind}", floor=1.0)
+
+
+def _rows_state(op, u, lmn, lmx, steps, basis_rows):
+    """A reference-backend state after ``steps`` steps with a basis of
+    ``basis_rows`` rows, and the count of its live rows, min(steps + 2,
+    M), as the fused stepper passes it."""
+    s = BIFSolver.create(max_iters=32, rtol=1e-12, reorth=True)
+    qs = s.step_n(s.init_state(op, u, lam_min=lmn, lam_max=lmx,
+                               basis_rows=basis_rows), steps)
+    g = qs.st
+    lanes = g.g.shape
+    scalars = (g.lz.beta, g.g, g.c, g.delta, g.delta_lr, g.delta_rr,
+               torch.full(lanes, lmn, dtype=g.g.dtype, device=g.g.device),
+               torch.full(lanes, lmx, dtype=g.g.dtype, device=g.g.device))
+    rows = torch.clamp(qs.step + 2, max=basis_rows).to(torch.int32)
+    return (g.lz.v.contiguous(), g.lz.v_prev.contiguous(), scalars,
+            qs.basis.contiguous(), rows)
+
+
+@pytest.mark.parametrize("n,lanes", [(1000, 64), (4177, 64), (333, 70)])
+@pytest.mark.parametrize("steps", [0, 6, 12])
+def test_k3_live_rows_match_the_full_basis(cuda, n, lanes, steps):
+    """With ``rows`` (2, a mid count, and M = 14) the kernel reads only
+    the live basis rows; the plain version reads all M and agrees."""
+    a_np = _spd(n, seed=n + 1)
+    w = np.linalg.eigvalsh(a_np)
+    a = torch.as_tensor(a_np, device=cuda)
+    u = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (lanes, n)), device=cuda)
+    v, vp, sc, basis, rows = _rows_state(Dense(a), u, 0.5 * w[0],
+                                         2.0 * w[-1], steps, 14)
+    assert int(rows) == min(steps + 2, 14)
+    assert int(torch.count_nonzero(basis[:, int(rows):])) == 0
+    one = torch.ones((), dtype=a.dtype, device=cuda)
+    args = (a, one, one, one * 0.0, v, vp, sc, basis)
+    live = tls.ROUTES["live_rows"]
+    got = ops.fused_step_dense(*args, shared_a=True, rows=rows)
+    assert tls.ROUTES["live_rows"] == live + 1
+    want = tls.fused_step_dense_plain(*args, shared_a=True)
+    _close(_flat(got), _flat(want), 1e-12, "K3 live rows", floor=1.0)
+
+
+def test_k3_gives_the_same_bits_run_to_run(cuda):
+    """The column splits and the tail's cluster partials are added in a
+    fixed order: two launches on the same inputs agree bit for bit."""
+    n, lanes = 4177, 64
+    a_np = _spd(n, seed=3)
+    w = np.linalg.eigvalsh(a_np)
+    a = torch.as_tensor(a_np, device=cuda)
+    u = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (lanes, n)), device=cuda)
+    v, vp, sc, basis, rows = _rows_state(Dense(a), u, 0.5 * w[0],
+                                         2.0 * w[-1], 5, 161)
+    one = torch.ones((), dtype=a.dtype, device=cuda)
+    args = (a, one, one, one * 0.0, v, vp, sc, basis)
+    first = _flat(ops.fused_step_dense(*args, shared_a=True, rows=rows))
+    second = _flat(ops.fused_step_dense(*args, shared_a=True, rows=rows))
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("data_dtype,vec_dtype,rtol", [
@@ -448,6 +522,43 @@ def test_mha_flash_gqa_matches_plain(cuda, dtype):
         vr.transpose(1, 2).reshape(16, 70, 64)).reshape(2, 8, 70, 64
                                                         ).transpose(1, 2)
     _row_close(o, want, K7_TOL[dtype], "mha_flash")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ratio", [1, 8, 16])
+@pytest.mark.parametrize("t,s,causal", [
+    (1, 200, False),        # decode: below one 64-row tile
+    (63, 63, True), (64, 64, True),        # at and below the 64-row tile
+    (200, 200, True), (200, 200, False),   # across the 128-row CTA tile
+    (128, 300, False),      # a ragged key tile
+    (96, 160, True), (160, 96, True),      # causal with T != S
+    (700, 700, True),       # an odd count of key tiles across CTAs
+    (4096, 4096, True)])    # the prefill's length
+def test_mha_flash_routes_match_plain(cuda, d, ratio, t, s, causal):
+    """bf16 grouped-query attention on each route (``wgmma`` from one
+    64-row query tile at D = 64 and 128, ``mma_sync`` below it) against
+    the reference's repeat-and-flatten, row by row, and run to run."""
+    hkv = 2
+    h = hkv * ratio
+    rng = np.random.default_rng(d + ratio + t + s)
+    q, k, v = (torch.as_tensor(rng.standard_normal(sh), dtype=torch.float32,
+                               device=cuda).to(torch.bfloat16)
+               for sh in ((1, t, h, d), (1, s, hkv, d), (1, s, hkv, d)))
+    route = "wgmma" if t >= 64 else "mma_sync"
+    assert tfa.route(torch.bfloat16, d, t) == route
+    routed = tfa.ROUTES[route]
+    o = ops.mha_flash(q, k, v, causal=causal)
+    assert tfa.ROUTES[route] == routed + 1
+    assert bool(torch.isfinite(o.float()).all())
+    kr, vr = (x.repeat_interleave(ratio, dim=2) for x in (k, v))
+    for h0 in range(0, h, 16):   # the plain scores, 16 heads at a time
+        hs = slice(h0, min(h0 + 16, h))
+        want = tfa.flash_attention_plain(
+            *(x[0, :, hs].transpose(0, 1) for x in (q, kr, vr)),
+            causal=causal)
+        _row_close(o[0, :, hs].transpose(0, 1), want, 1e-2,
+                   f"route {route}")
+    assert torch.equal(o, ops.mha_flash(q, k, v, causal=causal))
 
 
 def test_k7_refuses_what_it_does_not_take(cuda):

@@ -481,3 +481,149 @@ def test_two_system_judges_refuse_what_the_reference_refuses():
     want = R.BIFSolver.create(max_iters=18, fn="log").judge_kdpp_swap_batch(
         R.Dense(jnp.asarray(a)), jnp.asarray(u), jnp.asarray(v), t, p, **iv)
     _same_judge(res, want, "matfun swap batch")
+
+
+# ---------------------------------------------------------------------------
+# the live basis rows: before step s only rows 0 .. min(s + 2, M) - 1 can be
+# non-zero, so the fused stepper hands K3 that count and the kernel skips
+# the rest
+
+
+def _record_live_rows(monkeypatch):
+    """Wrap the K3 entry point: each call with a basis records the live-row
+    count it was given and checks that every lane's basis rows from that
+    count on are exactly zero."""
+    counts = []
+    real = tops.fused_step_dense
+
+    def spy(*args, rows=None, **kw):
+        basis = args[7] if len(args) > 7 else kw.get("basis")
+        if basis is not None:
+            assert rows is not None and rows.dtype == torch.int32
+            c = int(rows)
+            assert 2 <= c <= basis.shape[-2]
+            assert not bool(torch.any(basis[..., c:, :])), \
+                f"a basis row at or past {c} is set"
+            counts.append(c)
+        return real(*args, rows=rows, **kw)
+
+    monkeypatch.setattr(tops, "fused_step_dense", spy)
+    return counts
+
+
+def _live(steps, m, first=0):
+    return [min(s + 2, m) for s in range(first, first + steps)]
+
+
+def _basis_zero_past_live(state):
+    m = state.basis.shape[-2]
+    c = min(int(state.step) + 2, m)
+    assert not bool(torch.any(state.basis[..., c:, :])), (int(state.step), c)
+
+
+def test_live_rows_through_a_fused_solve_to_its_cap(monkeypatch):
+    """solve_batch to its cap: every step's count is min(step + 2, M), the
+    rows past it are zero, and the result is the reference backend's;
+    then a state with fewer basis rows than steps, whose clamped last row
+    is written again and again."""
+    a, us, lmn, lmx = _problem(seed=29)
+    counts = _record_live_rows(monkeypatch)
+    cap = 7
+    kw = dict(max_iters=cap, rtol=1e-14, reorth=True)
+    iv = dict(lam_min=lmn, lam_max=lmx)
+    got = T.BIFSolver.create(backend="fused", **kw).solve_batch(
+        T.Dense(_t(a)), _t(us), **iv)
+    want = T.BIFSolver.create(backend="reference", **kw).solve_batch(
+        T.Dense(_t(a)), _t(us), **iv)
+    assert int(got.iterations.max()) == cap
+    assert counts == _live(cap - 1, cap + 1)
+    assert torch.equal(got.iterations, want.iterations)
+    assert torch.equal(got.certified, want.certified)
+    assert torch.equal(got.converged, want.converged)
+    _close(got.lower.numpy(), want.lower.numpy(), 1e-12, "lower")
+    _close(got.upper.numpy(), want.upper.numpy(), 1e-12, "upper")
+    _contains(got.lower.numpy(), got.upper.numpy(), _truth(a, us))
+
+    counts.clear()
+    s = T.BIFSolver.create(backend="fused", **kw)
+    st = s.resume(s.init_state(T.Dense(_t(a)), _t(us), basis_rows=4, **iv))
+    assert counts == _live(cap - 1, 4) and counts[-3:] == [4, 4, 4]
+    _basis_zero_past_live(st)
+
+
+@pytest.mark.parametrize("decide_every", [1, 3])
+def test_live_rows_across_step_n_resume_and_chunks(monkeypatch,
+                                                    decide_every):
+    """step_n then resume, and resume_chunked: the counts follow the
+    global step across every call, and both end where resume does."""
+    a, us, lmn, lmx = _problem(seed=31)
+    counts = _record_live_rows(monkeypatch)
+    s = T.BIFSolver.create(max_iters=30, rtol=1e-8, backend="fused",
+                           decide_every=decide_every, reorth=True)
+    st0 = s.init_state(T.Dense(_t(a)), _t(us), lam_min=lmn, lam_max=lmx)
+    m = st0.basis.shape[-2]
+    full = s.resume(st0)
+    steps = int(full.step)
+    assert counts == _live(steps, m)
+    for part in (s.resume(s.step_n(st0, 6)),
+                 s.resume_chunked(st0, chunk_iters=4)):
+        counts.clear()
+        _basis_zero_past_live(part)
+        assert torch.equal(part.basis, full.basis)
+        assert torch.equal(part.step, full.step)
+    mid = s.step_n(st0, 6)
+    _basis_zero_past_live(mid)
+    counts.clear()
+    s.resume(mid)
+    assert counts == _live(steps - int(mid.step), m, first=int(mid.step))
+
+
+def test_live_rows_in_a_fused_trace(monkeypatch):
+    """trace() sizes the basis at num_iters + 1 rows: the counts run
+    2 .. num_iters, and the four sequences are the reference backend's."""
+    a, us, lmn, lmx = _problem(seed=37)
+    counts = _record_live_rows(monkeypatch)
+    kw = dict(max_iters=30, reorth=True)
+    iters = 12
+    got = T.BIFSolver.create(backend="fused", **kw).trace(
+        T.Dense(_t(a)), _t(us), iters, lam_min=lmn, lam_max=lmx)
+    want = T.BIFSolver.create(backend="reference", **kw).trace(
+        T.Dense(_t(a)), _t(us), iters, lam_min=lmn, lam_max=lmx)
+    assert counts == _live(iters - 1, iters + 1)
+    for f in got._fields:
+        _close(getattr(got, f).numpy(), getattr(want, f).numpy(), 1e-12, f)
+
+
+def test_live_rows_of_a_state_from_the_reference(monkeypatch):
+    """A reorth state of the JAX package, brought over by
+    convert.state_from_numpy, keeps the layout: rows past min(step + 2,
+    M) are zero, and the fused resume continues the counts from its step
+    to the JAX result."""
+    a, us, lmn, lmx = _problem(seed=41)
+    iv = dict(lam_min=lmn, lam_max=lmx)
+    kw = dict(max_iters=30, rtol=1e-8, reorth=True)
+    js = R.BIFSolver.create(**kw)
+    mid = js.step_n(js.init_state(R.Dense(jnp.asarray(a)), jnp.asarray(us),
+                                  **iv), 5)
+    want = js.finalize(js.resume(mid))
+    fields = {f: getattr(mid, f) for f in mid._fields}
+    fields["op"] = ("dense", {"a": a})
+    fields["st"] = _state_dict(mid.st)
+    for f in ("lam_min", "lam_max", "basis", "step"):
+        fields[f] = np.asarray(fields[f])
+    if fields.get("coeffs") is None:
+        fields.pop("coeffs", None)
+    state = convert.state_from_numpy(fields, device="cpu")
+    _basis_zero_past_live(state)
+    counts = _record_live_rows(monkeypatch)
+    ts = T.BIFSolver.create(backend="fused", **kw)
+    got = ts.finalize(ts.resume(state))
+    m = state.basis.shape[-2]
+    assert counts == _live(len(counts), m, first=int(state.step))
+    assert len(counts) > 0
+    np.testing.assert_array_equal(got.iterations.numpy(),
+                                  np.asarray(want.iterations))
+    np.testing.assert_array_equal(got.certified.numpy(),
+                                  np.asarray(want.certified))
+    _close(got.lower.numpy(), want.lower, 1e-12, "lower")
+    _close(got.upper.numpy(), want.upper, 1e-12, "upper")
