@@ -10,7 +10,11 @@ It runs every phase, in order, each printing one JSON line:
   3. kernels  -- K1-K7 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
-                 the least time the card could take (bound); K3 also on a
+                 the least time the card could take (bound); K2 and K4
+                 on the tiled route, with the same bits from two launches
+                 (the sparse and trace phases assert that every K2 and K4
+                 launch took it), timed as CUDA-graph replays because
+                 their wrappers' host work outlasts them; K3 also on a
                  mid-solve state with its live-row count (the bound counts
                  the live rows), with its matvec and tail launches timed
                  apart; K7 with its route and its TFLOP/s;
@@ -46,9 +50,13 @@ It runs every phase, in order, each printing one JSON line:
                  device time of every kernel it launched (torch.profiler;
                  CUDA events for the one-launch attention call), so the
                  card's idle share is 1 - device / host;
- 11. yardsticks -- the library calls that run Triton kernels (K5's BSR @
-                 dense at 512 columns), timed last: after one, the
-                 profiler misses calls that launch only the port's kernels.
+ 11. yardsticks -- the BSR @ dense library calls beside K2, K4 and K5,
+                 each timed in turns with its kernel (kernel, library,
+                 library, kernel; three rounds; medians and their factor;
+                 the kernel both as calls back to back and as a CUDA-graph
+                 replay), last: they may run Triton kernels, after which
+                 the profiler misses calls that launch only the port's
+                 kernels.
 
 Every path phase holds the port against the same calls on
 ``backend='reference'`` on the same card and against dense solves for the
@@ -180,6 +188,19 @@ def device_kernels(fn) -> dict:
         ms, count = out.get(name, (0.0, 0))
         out[name] = (ms + e.duration_ns() / 1e6, count + 1)
     return out
+
+
+def graph_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn``'s launches replayed as one CUDA graph:
+    the wrapper's host work (checks, allocation, ctypes) runs once, at
+    capture, so the reading is the kernels' time back to back even where
+    that host work outlasts them."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, reps, warmup)
 
 
 def per_launch_ms(fn, reps: int = 5) -> dict:
@@ -319,6 +340,24 @@ def iterations_of(out) -> int:
     return int(its.max())
 
 
+def bell_routes() -> dict:
+    """K2's and K4's launches by route since the counts were zeroed."""
+    from repro_torch.kernels import lanczos_step as ls
+    from repro_torch.kernels import spmv_bell as sb
+    return {"bell_matvec": dict(sb.ROUTES),
+            "fused_step_bell": {k: v for k, v in ls.ROUTES.items()
+                                if k.startswith("bell_")}}
+
+
+def assert_tiled(launches, routes) -> None:
+    """Every K2 and K4 launch of a path phase (all on the shared table)
+    took the tiled route: K4's the FP64 tensor-core tile (f64 vectors)."""
+    assert routes["bell_matvec"]["tiled"] == launches["bell_matvec"], \
+        f"K2 off the tiled route: {routes}"
+    assert routes["fused_step_bell"]["bell_dmma"] == \
+        launches["fused_step_bell"], f"K4 off the tiled route: {routes}"
+
+
 def sdpa_gqa(q, k, v):
     """PyTorch's fused attention on (B, H, T, D) views with grouped kv
     heads: the library yardstick of K7 (the port never calls it)."""
@@ -344,7 +383,7 @@ class Smoke:
         self.bilinear = None
         self.attention = None
         self.setup_s = {}     # seconds of the problems' set-up steps
-        self.late_library = []  # (kernel, thunk): timed in the last phase
+        self.late_library = []  # (name, kernel, library call): timed last
 
     # -- problems --------------------------------------------------------
 
@@ -516,16 +555,17 @@ class Smoke:
     def _kernel_line(self, name, route_src, replaces, got, want, tol, why,
                      kernel_ms, plain_ms, bound_ms, bound_by, library_ms,
                      fn, library_note=None, err=errors, extra=None):
-        """One kernels line. ``library_ms`` may be a thunk: a library call
-        that runs Triton kernels (BSR @ dense) is timed in the last phase,
-        because after one, the profiler records nothing of a call that
-        launches only the port's own kernels (the K6 and K7 lines came
-        back empty behind K5's yardstick). ``err`` is the error measure:
+        """One kernels line. ``library_ms`` may be the library call itself:
+        a BSR @ dense yardstick, which may run Triton kernels, is timed in
+        the last phase, in turns with ``fn``, because after a Triton
+        kernel the profiler records nothing of a call that launches only
+        the port's own kernels (the K6 and K7 lines came back empty behind
+        K5's yardstick). ``err`` is the error measure:
         normwise against each output's largest entry, or K7's per row."""
         abs_err, rel_err = err(got, want)
         per_call = sum(c for _, c in device_kernels(fn).values())
         if callable(library_ms):
-            self.late_library.append((name, library_ms))
+            self.late_library.append((name, fn, library_ms))
             library_ms = None
         line = {"phase": "kernels", "name": name, "max_abs_err": abs_err,
                 "max_rel_err": rel_err, "error_measure": err.__name__,
@@ -643,16 +683,32 @@ class Smoke:
         bms, bby = bound(nb, 2 * K * nnz, torch.float32)
         bsr32 = bsr_of(bell.data, bell.cols, torch.float32)
         xt32 = xs32.T.contiguous()
+        # K2 and K4 on the shared table must take the tiled route, and give
+        # the same bits on a second launch
+        tiled = sb.ROUTES["tiled"]
+        k2_same = torch.equal(ops.bell_matvec(bell.data, bell.cols, xs32),
+                              got[0])
+        assert sb.ROUTES["tiled"] == tiled + 1, "K2 not on the tiled route"
+        assert k2_same, "K2: two launches differ"
+        # K2's and K4's device time is below their wrappers' host work (the
+        # checks, allocations and ctypes call of each launch), so launches
+        # back to back time the host: their ms is the call replayed as a
+        # CUDA graph, with the back-to-back time beside it
+        def k2():
+            return ops.bell_matvec(bell.data, bell.cols, xs32)
+
         self._kernel_line(
             "bell_matvec", "src/repro_torch/kernels/csrc/bell.cu",
             "src/repro/kernels/spmv_bell.py:44", got, want, 1e-5,
             "f32 accumulation (the kernel's contract) in another order",
-            cuda_ms(lambda: ops.bell_matvec(bell.data, bell.cols, xs32)),
+            graph_ms(k2),
             cuda_ms(lambda: sb.bell_matvec_plain(bell.data, bell.cols,
                                                  xs32)),
-            bms, bby, cuda_ms(lambda: torch.matmul(bsr32, xt32)),
-            lambda: ops.bell_matvec(bell.data, bell.cols, xs32),
-            "the SpMV (BSR @ dense, 64 right-hand sides)")
+            bms, bby, lambda: torch.matmul(bsr32, xt32), k2,
+            "the SpMV (BSR @ dense, 64 right-hand sides)",
+            extra={"route": sb.route(bell.data, bell.cols),
+                   "same_bits": k2_same, "wrapper_ms": cuda_ms(k2),
+                   "per_launch_ms": per_launch_ms(k2)})
 
         sf = BIFSolver.create(**SPARSE)
         gs = sf.step_n(sf.init_state(bell, sp["u"], lam_min=sp["lmn"],
@@ -667,23 +723,37 @@ class Smoke:
         zero = torch.zeros((), dtype=gs.lz.v.dtype, device=self.dev)
         bargs = (bell.data, bell.cols, one, one, zero, gs.lz.v,
                  gs.lz.v_prev, ssc)
+        dmma = ls.ROUTES["bell_dmma"]
         got = flatten_out(ops.fused_step_bell(*bargs))
         want = flatten_out(ls.fused_step_bell_plain(*bargs))
+        k4_same = all(torch.equal(x, y) for x, y in zip(
+            flatten_out(ops.fused_step_bell(*bargs)), got))
+        assert ls.ROUTES["bell_dmma"] == dmma + 2, \
+            "K4 not on the tiled (FP64 tensor-core) route"
+        assert k4_same, "K4: two launches differ"
         nb = nbytes(bell.data, bell.cols, gs.lz.v, gs.lz.v_prev, *ssc) \
             + nbytes(*got)
         bms, bby = bound(nb, 2 * K * nnz + 10 * K * nr * bs,
                          torch.float64)
         bsr64 = bsr_of(bell.data, bell.cols, torch.float64)
         xt64 = gs.lz.v.T.contiguous()
+        sms = torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        def k4():
+            return ops.fused_step_bell(*bargs)
+
         self._kernel_line(
             "fused_step_bell", "src/repro_torch/kernels/csrc/bell.cu",
             "src/repro/kernels/lanczos_step.py:235", got, want, 1e-12,
             "f64 vectors, f32 data cast to f64; summation order, FMA",
-            cuda_ms(lambda: ops.fused_step_bell(*bargs)),
+            graph_ms(k4),
             cuda_ms(lambda: ls.fused_step_bell_plain(*bargs)), bms, bby,
-            cuda_ms(lambda: torch.matmul(bsr64, xt64)),
-            lambda: ops.fused_step_bell(*bargs),
-            "the SpMV (BSR @ dense in f64, 64 right-hand sides)")
+            lambda: torch.matmul(bsr64, xt64), k4,
+            "the SpMV (BSR @ dense in f64, 64 right-hand sides)",
+            extra={"route": sb.route(bell.data, bell.cols),
+                   "splits": ls.bell_splits(K, nr, bs, kb, sms),
+                   "same_bits": k4_same, "wrapper_ms": cuda_ms(k4),
+                   "per_launch_ms": per_launch_ms(k4)})
         # K5 on the block path's operands: the shared table and 64 block
         # lanes of 8 probe rows (f64, as the block recurrence hands them
         # over; the wrapper rounds them to f32 once)
@@ -701,7 +771,7 @@ class Smoke:
             cuda_ms(lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb)),
             cuda_ms(lambda: sb.bell_matvec_mrhs_plain(bell.data, bell.cols,
                                                       xb)),
-            bms, bby, lambda: cuda_ms(lambda: torch.matmul(bsr32, xt5)),
+            bms, bby, lambda: torch.matmul(bsr32, xt5),
             lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb),
             "the SpMM (BSR @ dense, f32, 512 right-hand sides)")
 
@@ -1017,6 +1087,7 @@ class Smoke:
         judge_f, t_j = self.path_call(lambda: cfg("fused").judge_batch(
             bell, u, t, **iv))
         launches = dict(LAUNCHES)
+        routes = bell_routes()
         solve_r, t_r = self.run_timed(lambda: cfg("reference").solve_batch(
             bell, u, **iv))
         judge_r, t_jr = self.run_timed(lambda: cfg("reference").judge_batch(
@@ -1047,8 +1118,9 @@ class Smoke:
                             "solve_batch_reference": t_r,
                             "judge_batch_fused": t_j,
                             "judge_batch_reference": t_jr},
-                "launches": launches}
+                "launches": launches, "bell_routes": routes}
         emit(line)
+        assert_tiled(launches, routes)
         assert torch.equal(solve_f.certified, solve_r.certified)
         assert torch.equal(solve_p.certified, solve_r.certified)
         jl = line["judge_batch_fused"]
@@ -1085,6 +1157,7 @@ class Smoke:
             op, SCALAR_PROBES, block_size=1, solver=BIFSolver.create(
                 backend="fused", **TRACE_SCALAR), **iv))
         launches = dict(LAUNCHES)
+        routes = bell_routes()
         res_r, t_r = self.run_timed(block("reference"))
 
         # Slack of the f32 SpMM (K5's contract): the bracket is that of
@@ -1144,7 +1217,8 @@ class Smoke:
               "scalar_fused": line_f,
               "seconds": {"block_pallas": t_p, "block_reference": t_r,
                           "scalar_fused": t_f},
-              "launches": launches})
+              "launches": launches, "bell_routes": routes})
+        assert_tiled(launches, routes)
         # K5: once at block_init, then once per block step of the driver;
         # every lane certifies before the cap, so the longest lane steps
         # in every round and the steps are its iterations less one
@@ -1391,15 +1465,34 @@ class Smoke:
                   "kernels_ms": dict(top)})
 
     def phase_yardsticks(self):
-        """The Triton library yardsticks, last: each line's library time,
-        its first call (a Triton build for BSR @ dense) in the wall
-        seconds."""
-        for name, thunk in self.late_library:
+        """The BSR @ dense yardsticks (K2, K4, K5), last, because they may
+        run Triton kernels: each kernel timed in turns with its library
+        call (kernel, library, library, kernel; three rounds), since these
+        yardsticks move between calls. The line's library time is the
+        median of the library's six readings; the first library call (a
+        Triton build) falls in the warm-up and in the wall seconds."""
+        for name, kernel, library in self.late_library:
             t0 = time.perf_counter()
-            ms = thunk()
-            self.kernels[name]["library_ms"] = ms
-            emit({"phase": "yardsticks", "name": name, "library_ms": ms,
-                  "library_timing_s": time.perf_counter() - t0})
+            ks, gs, ls_ = [], [], []
+            for _ in range(3):
+                ks.append(cuda_ms(kernel))
+                gs.append(graph_ms(kernel))
+                ls_.extend([cuda_ms(library), cuda_ms(library)])
+                gs.append(graph_ms(kernel))
+                ks.append(cuda_ms(kernel))
+            k_med, l_med = float(np.median(ks)), float(np.median(ls_))
+            g_med = float(np.median(gs))
+            self.kernels[name]["library_ms"] = l_med
+            emit({"phase": "yardsticks", "name": name,
+                  "kernel_ms_median": k_med, "library_ms_median": l_med,
+                  "factor": k_med / l_med,
+                  # the kernel's launches replayed as a CUDA graph, in the
+                  # same turns: its device time without the wrapper's host
+                  # work between calls
+                  "kernel_graph_ms_median": g_med,
+                  "graph_factor": g_med / l_med, "kernel_ms": ks,
+                  "kernel_graph_ms": gs, "library_ms": ls_,
+                  "timing_s": time.perf_counter() - t0})
 
     def _count(self, launches):
         for name, cnt in launches.items():

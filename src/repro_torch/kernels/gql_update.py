@@ -106,6 +106,9 @@ def gql_update_cuda(alpha_n, beta_n, beta_p, g, c, delta, d_lr, d_rr,
                              f"{tuple(x.shape)} on {x.device}, want "
                              f"{ref.dtype} {tuple(ref.shape)} on "
                              f"{ref.device}")
+    if ref.numel() == 0:
+        raise ValueError("gql_update_cuda launches on nonempty inputs only, "
+                         "got no lane")
     outs = [torch.empty_like(ref) for _ in OUTPUT_NAMES]
     lib = _build.load("gql_update")
     fn = lib.gql_update_f64 if ref.dtype == torch.float64 \

@@ -117,8 +117,12 @@ def _outputs(v, splits: int = 1):
 # Launches of K3 by route (csrc/dense_step.cu): "dmma" the shared f64 A
 # on the FP64 tensor cores, "fma_f32" the shared f32 A on the CUDA cores,
 # "lane" a per-lane A; "live_rows" counts the launches whose tail read
-# only the live basis rows (``rows`` given).
-ROUTES = {"dmma": 0, "fma_f32": 0, "lane": 0, "live_rows": 0}
+# only the live basis rows (``rows`` given). K4's by route (csrc/bell.cu,
+# ``spmv_bell.route``): "bell_dmma" a shared table with f64 vectors on the
+# FP64 tensor cores, "bell_fma_f32" a shared table with f32 vectors on
+# the CUDA cores, "bell_lane" a per-lane table.
+ROUTES = {"dmma": 0, "fma_f32": 0, "lane": 0, "live_rows": 0,
+          "bell_dmma": 0, "bell_fma_f32": 0, "bell_lane": 0}
 
 # The shared-A matvecs of K3 tile 64 lanes by 128 rows of A (f64, tensor
 # cores; 1 CTA resident per SM) or by 32 rows (f32, CUDA cores; about 4
@@ -134,6 +138,21 @@ def _dense_splits(lanes: int, n: int, device, tile_rows: int,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     stages = -(-n // _TILE_COLS)
     return max(1, min(8, (resident * sms) // tiles, stages // 4))
+
+
+# K4's f64 tile: 64 lanes x 128 rows of a block row per CTA (1 resident
+# per SM), walking the table's depth in chunks of 32 columns.
+_BELL_LANES, _BELL_ROWS, _BELL_DEPTH = 64, 128, 32
+
+
+def bell_splits(lanes: int, nr: int, bs: int, kb: int, sms: int) -> int:
+    """Slices of K4's chunk walk on the f64 tile, each written to its own
+    scratch slice and added by the tail in a fixed order: enough for the
+    tiles to fill ``sms`` SMs, with at least 4 chunks a slice, at most 8
+    slices. The kernel takes any count; this only steers the choice."""
+    tiles = -(-lanes // _BELL_LANES) * nr * -(-bs // _BELL_ROWS)
+    chunks = kb * -(-bs // _BELL_DEPTH)
+    return max(1, min(8, sms // tiles, chunks // 4))
 
 
 def _bind(fn):
@@ -156,6 +175,9 @@ def fused_step_dense_cuda(a, s_out, s_in, t, v, v_prev, scalars,
         raise TypeError(f"v must be (K, N) float32/float64, got "
                         f"{v.dtype} {tuple(v.shape)}")
     lanes, n = v.shape
+    if v.numel() == 0:
+        raise ValueError(f"fused_step_dense_cuda launches on nonempty inputs "
+                         f"only, got v {tuple(v.shape)}")
     _check_vec("v", v, v)
     _check_vec("v_prev", v_prev, v)
     want = (n, n) if shared_a else (lanes, n, n)
@@ -216,7 +238,7 @@ _BELL_TYPES = {(torch.float32, torch.float64): "f32_f64",
 def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
     """Launch K4 (BELL matvec launch + tail launch) on CUDA tensors:
     v (L, R*bs), ``data`` (R, K, bs, bs) shared or (L, R, K, bs, bs)."""
-    from .spmv_bell import _lane_stride
+    from .spmv_bell import _lane_stride, route, vec16
     if v.device.type != "cuda":
         raise ValueError(f"fused_step_bell_cuda needs CUDA tensors, got "
                          f"{v.device}")
@@ -235,14 +257,29 @@ def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
     for name, x in (("data", data), ("cols", cols)):
         if x.device != v.device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {v.device}")
+    if v.numel() == 0 or data.numel() == 0:
+        raise ValueError(f"fused_step_bell_cuda launches on nonempty inputs "
+                         f"only, got v {tuple(v.shape)}, data "
+                         f"{tuple(data.shape)}")
+    tiled = route(data, cols) == "tiled"
     so, so_ls, so_es = _strided(s_out, lanes, n, v)
     si, si_ls, si_es = _strided(s_in, lanes, n, v)
+    scalar_in = (si_ls, si_es) == (0, 0)
+    if tiled and not scalar_in and (si_es != 1 or si_ls not in (0, n)):
+        # the tile stages s_in rows: one shared row or a row a lane
+        si = si.contiguous()
+        si_ls, si_es = n, 1
     tt, t_ls, t_es = _strided(t, lanes, n, v)
     sc = _scalars(scalars, lanes, v)
-    alpha, beta, r, raw, acc = _outputs(v)
-    dims = (ctypes.c_longlong * 12)(
+    dmma = tiled and v.dtype == torch.float64
+    splits = bell_splits(lanes, nr, bs, kb, torch.cuda.get_device_properties(
+        v.device).multi_processor_count) if dmma else 1
+    alpha, beta, r, raw, acc = _outputs(v, splits)
+    staged = (data, v) if scalar_in else (data, v, si)
+    dims = (ctypes.c_longlong * 15)(
         lanes, nr, kb, bs, _lane_stride(data, 4, lanes),
-        _lane_stride(cols, 2, lanes), so_ls, so_es, si_ls, si_es, t_ls, t_es)
+        _lane_stride(cols, 2, lanes), so_ls, so_es, si_ls, si_es, t_ls, t_es,
+        int(tiled), splits, int(vec16(bs, *staged)))
     lib = _build.load("bell")
     fn = _bind(getattr(lib, "fused_step_bell_" + _BELL_TYPES[key]))
     with torch.cuda.device(v.device):
@@ -250,6 +287,8 @@ def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
                 _build.ptr_array([alpha, beta, r, *raw, acc]), dims,
                 _build.stream_of(v))
     _build.check(rc, "fused_step_bell")
+    ROUTES["bell_dmma" if dmma else "bell_fma_f32" if tiled
+           else "bell_lane"] += 1
     return alpha, beta, r, tuple(raw)
 
 

@@ -29,8 +29,8 @@ LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the per-route counts of K3 and K7."""
-    for counts in (LAUNCHES, _ls.ROUTES, _fa.ROUTES):
+    """Zero ``LAUNCHES`` and the per-route counts of K2, K3/K4 and K7."""
+    for counts in (LAUNCHES, _sb.ROUTES, _ls.ROUTES, _fa.ROUTES):
         for k in counts:
             counts[k] = 0
 

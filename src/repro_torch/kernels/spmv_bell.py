@@ -14,6 +14,12 @@ dtype); ``bell_matvec_plain`` is the plain PyTorch version of the K2
 kernel, with the kernel's contract: f32 accumulation, f32 output
 (``repro/kernels/spmv_bell.py:38-40, :66``). ``bell_matvec_cuda``
 launches ``csrc/bell.cu``; ``kernels.ops.bell_matvec`` picks by device.
+On the card the matvec of K2 and of K4 takes one of two routes, by the
+table's shape (``route``): ``"tiled"`` for a table shared by the lanes (a
+CTA per 64 lanes x 64 rows of a block row for f32 vectors, 128 rows for
+f64, so each block is read once per 64 lanes), ``"lane"`` for a table per
+lane (a CTA per block row and lane). ``ROUTES`` counts K2's launches by
+route.
 
 K5, the multi-right-hand-side SpMM of block-Krylov mode, has the same
 contract over row-stacked blocks x (L, b, N): ``bell_matvec_mrhs_plain``
@@ -62,6 +68,27 @@ def bell_matvec_plain(data: torch.Tensor, cols: torch.Tensor,
                            x.to(torch.float32))
 
 
+# Launches of K2 by route (csrc/bell.cu; K4's are in lanczos_step.ROUTES).
+ROUTES = {"tiled": 0, "lane": 0}
+
+
+def route(data: torch.Tensor, cols: torch.Tensor) -> str:
+    """The route of a blocked-ELL matvec on the card (K2, and K4's matvec
+    launch): ``"tiled"`` when every lane reads one table (``data``
+    (R, K, bs, bs), ``cols`` (R, K)), so a CTA reuses each block across
+    64 lanes; ``"lane"`` for a table per lane, which has nothing to reuse.
+    Reads shapes only."""
+    return "tiled" if data.ndim == 4 and cols.ndim == 2 else "lane"
+
+
+def vec16(bs: int, *tensors) -> bool:
+    """Whether the tiled route may stage with 16-byte copies: each tensor
+    starts on a 16-byte boundary and a block row of ``bs`` of its elements
+    is a whole number of 16 bytes (so every row and chunk start is)."""
+    return all(t.data_ptr() % 16 == 0 and bs * t.element_size() % 16 == 0
+               for t in tensors)
+
+
 def _lane_stride(t: torch.Tensor, base_ndim: int, lanes: int) -> int:
     """Element stride between lanes of a table with optional leading lane
     dim (0 for a shared table)."""
@@ -96,9 +123,15 @@ def bell_matvec_cuda(data: torch.Tensor, cols: torch.Tensor,
     for name, t in (("data", data), ("cols", cols)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    dims = (ctypes.c_longlong * 6)(
+    if xf.numel() == 0 or data.numel() == 0:
+        raise ValueError(f"bell_matvec_cuda launches on nonempty inputs "
+                         f"only, got x {tuple(x.shape)}, data "
+                         f"{tuple(data.shape)}")
+    which = route(data, cols)
+    dims = (ctypes.c_longlong * 8)(
         lanes, r, k, bs, _lane_stride(data, 4, lanes),
-        _lane_stride(cols, 2, lanes))
+        _lane_stride(cols, 2, lanes), int(which == "tiled"),
+        int(vec16(bs, data, xf)))
     y = torch.empty_like(xf)
     lib = _build.load("bell")
     fn = lib.bell_matvec_f64 if data.dtype == torch.float64 \
@@ -111,6 +144,7 @@ def bell_matvec_cuda(data: torch.Tensor, cols: torch.Tensor,
         rc = fn(_build.ptr_array([data, cols, xf]), _build.ptr_array([y]),
                 dims, _build.stream_of(x))
     _build.check(rc, "bell_matvec")
+    ROUTES[which] += 1
     return y[0] if single else y
 
 

@@ -136,28 +136,61 @@ def test_k1_f32_matches_plain_on_a_solver_state(cuda):
     _close(got, tgu.gql_update_plain(*xs), 1e-5, "K1 f32")
 
 
-@pytest.mark.parametrize("per_lane", [False, True])
+def _bell_table(n, bs, seed):
+    """A seeded SPD matrix for a blocked-ELL table: the ring lattice of the
+    main path (Kb = 3 at bs = 128 and 40; a ridge of 0.5 keeps the step's
+    recurrence well conditioned) for bs >= 32, a random sparse SPD matrix
+    for smaller blocks."""
+    from repro_torch.data import graph_laplacian
+    if bs >= 32:
+        return graph_laplacian(n, mean_degree=12, rewire=0.0, ridge=0.5,
+                               seed=seed)
+    return _spd(n, seed=seed, density=0.1)
+
+
+# (n, bs, lanes, per_lane): bs = 128 and Kb = 3 is the main path's table;
+# lane counts 1, 3, 65 and 130 leave ragged 64-lane tiles; bs = 40 is no
+# multiple of the 32-row tile or the 32-column chunk; bs = 6 gives rows of
+# 24 bytes, staged one element a copy instead of 16 bytes
+BELL_CASES = [(100, 8, 3, False), (100, 8, 3, True), (1024, 128, 1, False),
+              (1024, 128, 3, False), (1024, 128, 65, False),
+              (1024, 128, 130, False), (512, 128, 3, True),
+              (1000, 40, 65, False), (90, 6, 5, False)]
+
+
+@pytest.mark.parametrize("n,bs,lanes,per_lane", BELL_CASES)
 @pytest.mark.parametrize("data_dtype", [torch.float32, torch.float64])
-def test_k2_matches_plain(cuda, per_lane, data_dtype):
+def test_k2_matches_plain(cuda, n, bs, lanes, per_lane, data_dtype):
+    """K2 on both routes (``spmv_bell.ROUTES`` says which ran) against its
+    plain version; two launches give the same bits, and so does x staged
+    from an address off the 16-byte grid (one element a copy)."""
     rng = np.random.default_rng(2)
-    lanes, n = 3, 100
-    d_np, c_np, _ = tsb.dense_to_bell(_spd(n, seed=2, density=0.1), bs=8,
+    d_np, c_np, _ = tsb.dense_to_bell(_bell_table(n, bs, 2), bs=bs,
                                       dtype=np.float64)
     data = torch.as_tensor(d_np, dtype=data_dtype, device=cuda)
     cols = torch.as_tensor(c_np, device=cuda)
     if per_lane:
         data = torch.stack([data * (1.0 + 0.1 * i) for i in range(lanes)])
         cols = torch.stack([cols] * lanes)
-    x = torch.as_tensor(rng.standard_normal((lanes, data.shape[-4] * 8)),
+    x = torch.as_tensor(rng.standard_normal((lanes, data.shape[-4] * bs)),
                         device=cuda)
-    before = ops.LAUNCHES["bell_matvec"]
+    which = "lane" if per_lane else "tiled"
+    assert tsb.route(data, cols) == which
+    before, routed = ops.LAUNCHES["bell_matvec"], tsb.ROUTES[which]
     got = ops.bell_matvec(data, cols, x)
     assert ops.LAUNCHES["bell_matvec"] == before + 1
+    assert tsb.ROUTES[which] == routed + 1
     assert got.dtype == torch.float32 and got.shape == x.shape
     _close([got], [tsb.bell_matvec_plain(data, cols, x)], 1e-5, "K2")
-    if not per_lane:   # one lane as a vector
-        _close([ops.bell_matvec(data, cols, x[1])],
-               [tsb.bell_matvec_plain(data, cols, x[1])], 1e-5, "K2 1-D")
+    assert torch.equal(ops.bell_matvec(data, cols, x), got)
+    if not per_lane:
+        x32 = x.to(torch.float32)
+        off = torch.empty(x32.numel() + 1, dtype=torch.float32,
+                          device=cuda)[1:].view(x32.shape).copy_(x32)
+        assert not tsb.vec16(bs, off)
+        assert torch.equal(ops.bell_matvec(data, cols, off), got)
+        _close([ops.bell_matvec(data, cols, x[-1])],   # one lane as a vector
+               [tsb.bell_matvec_plain(data, cols, x[-1])], 1e-5, "K2 1-D")
 
 
 @pytest.mark.parametrize("per_lane", [False, True])
@@ -364,28 +397,73 @@ def test_k3_gives_the_same_bits_run_to_run(cuda):
     (torch.float32, torch.float64, 1e-12),
     (torch.float64, torch.float64, 1e-12),
     (torch.float32, torch.float32, 1e-5)])
-@pytest.mark.parametrize("per_lane", [False, True])
-def test_k4_matches_plain(cuda, data_dtype, vec_dtype, rtol, per_lane):
-    n, lanes = 48, 3
-    a_np = _spd(n, seed=6, density=0.15, kappa=40.0)
-    bell = bell_from_dense(a_np, bs=8, device=cuda)
+@pytest.mark.parametrize("n,bs,lanes,per_lane", BELL_CASES)
+@pytest.mark.parametrize("scale", ["scalar", "shared", "per_lane"])
+def test_k4_matches_plain(cuda, data_dtype, vec_dtype, rtol, n, bs, lanes,
+                          per_lane, scale):
+    """K4 on both routes, with s_in one scalar, a vector shared by the
+    lanes or a vector a lane (the tile stages the last two as rows; s_out
+    is the same vector, so the sandwich stays symmetric), on the f64
+    tile's split chunk walk where the split count exceeds 1; two launches
+    give the same bits."""
+    a_np = _bell_table(n, bs, 6)
+    bell = bell_from_dense(a_np, bs=bs, device=cuda)
     w = np.linalg.eigvalsh(a_np)
-    u = np.random.default_rng(6).standard_normal((lanes, n))
+    rng = np.random.default_rng(6)
+    u = rng.standard_normal((lanes, n))
     v, vp, sc, _ = _state(bell, torch.as_tensor(u, device=cuda),
                           0.5 * w[0], 2.0 * w[-1], 2, False)
     data, cols = bell.data.to(data_dtype), bell.cols
     if per_lane:
         data = torch.stack([data * (1.0 + 0.1 * i) for i in range(lanes)])
         cols = torch.stack([cols] * lanes)
+    npad = data.shape[-4] * bs
+    pad = (0, npad - n)
     one = torch.ones((), dtype=vec_dtype, device=cuda)
-    args = (data.contiguous(), cols.contiguous(), one, one, one * 0.25,
-            v.to(vec_dtype), vp.to(vec_dtype),
+    s_in = {"scalar": one,
+            "shared": torch.as_tensor(rng.uniform(0.9, 1.1, npad),
+                                      dtype=vec_dtype, device=cuda),
+            "per_lane": torch.as_tensor(rng.uniform(0.9, 1.1, (lanes, npad)),
+                                        dtype=vec_dtype, device=cuda)}[scale]
+    args = (data.contiguous(), cols.contiguous(), s_in, s_in, one * 0.25,
+            torch.nn.functional.pad(v, pad).to(vec_dtype),
+            torch.nn.functional.pad(vp, pad).to(vec_dtype),
             tuple(s.to(vec_dtype) for s in sc))
-    before = ops.LAUNCHES["fused_step_bell"]
+    which = "bell_lane" if per_lane else "bell_dmma" \
+        if vec_dtype == torch.float64 else "bell_fma_f32"
+    before, routed = ops.LAUNCHES["fused_step_bell"], tls.ROUTES[which]
     got = ops.fused_step_bell(*args)
     assert ops.LAUNCHES["fused_step_bell"] == before + 1
+    assert tls.ROUTES[which] == routed + 1
     want = tls.fused_step_bell_plain(*args)
     _close(_flat(got), _flat(want), rtol, "K4", floor=1.0)
+    for x, y in zip(_flat(got), _flat(ops.fused_step_bell(*args))):
+        assert torch.equal(x, y)
+    if (n, bs, lanes) == (1024, 128, 65):   # the split walk is exercised
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert tls.bell_splits(lanes, n // bs, bs, 3, sms) > 1
+
+
+def test_k1_to_k4_refuse_empty_inputs(cuda):
+    """No lane: the card raises rather than count a launch that did not
+    happen (K5-K7 have their own cases)."""
+    f64 = dict(dtype=torch.float64, device=cuda)
+    none = torch.zeros(0, **f64)
+    with pytest.raises(ValueError, match="nonempty"):
+        ops.gql_update(*([none] * 10))
+    d_np, c_np, _ = tsb.dense_to_bell(_spd(64, seed=3), bs=32)
+    data = torch.as_tensor(d_np, device=cuda)
+    cols = torch.as_tensor(c_np, device=cuda)
+    with pytest.raises(ValueError, match="nonempty"):
+        ops.bell_matvec(data, cols, torch.zeros(0, 64, device=cuda))
+    v = torch.zeros(0, 64, **f64)
+    one = torch.ones((), **f64)
+    sc = (none,) * 8
+    with pytest.raises(ValueError, match="nonempty"):
+        ops.fused_step_bell(data.double(), cols, one, one, one, v, v, sc)
+    with pytest.raises(ValueError, match="nonempty"):
+        ops.fused_step_dense(torch.zeros(64, 64, **f64), one, one, one, v, v,
+                             sc, shared_a=True)
 
 
 def test_launchers_reject_what_the_kernels_do_not_take(cuda):

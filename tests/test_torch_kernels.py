@@ -182,12 +182,13 @@ def test_k5_cuda_launcher_refuses_cpu_tensors():
                                   torch.zeros(1, 2, 8))
 
 
-def _state_inputs(op, us, steps, reorth):
+def _state_inputs(op, us, steps, reorth, a=None):
     """Fused-step operands from a real (eager) JAX run of ``steps``
-    iterations: consistent pivots and, with ``reorth``, the banked basis
-    v_0..v_{steps+1} followed by zero rows."""
+    iterations on ``op`` (whose dense matrix ``a``, ``_A`` by default,
+    sets the spectral interval): consistent pivots and, with ``reorth``,
+    the banked basis v_0..v_{steps+1} followed by zero rows."""
     from repro.core import gql
-    w = np.linalg.eigvalsh(_A)
+    w = np.linalg.eigvalsh(_A if a is None else a)
     lmn, lmx = float(w[0] * 0.5), float(w[-1] * 2.0)
     st = gql.gql_init(op, jnp.asarray(us), lmn, lmx)
     basis = None
@@ -292,6 +293,66 @@ def test_k4_fused_step_bell_plain_matches_pallas(lanes, masked):
     want = [np.asarray(j[0]).reshape(-1), np.asarray(j[1]).reshape(-1),
             j[2], *[np.asarray(x).reshape(-1) for x in j[3]]]
     _close([got[0], got[1], got[2], *got[3]], want, what="fused_step_bell", floor=1.0)
+
+
+def test_k2_k4_plain_match_pallas_at_the_path_block_shape():
+    """The main path's table shape, bs = 128 and Kb = 3, on a ring-lattice
+    Laplacian (N = 1024, 4 lanes): K2's plain version against the Pallas
+    kernel in interpret mode (1e-5, f32 accumulation), and K4's against
+    the Pallas fused step with f32 blocks and f64 vectors (1e-12)."""
+    from repro.core import bell_from_dense
+    from repro_torch.data import graph_laplacian
+    lap = graph_laplacian(1024, mean_degree=12, rewire=0.0, seed=0)
+    data, cols, n = tsb.dense_to_bell(lap, bs=128, dtype=np.float32)
+    assert data.shape == (8, 3, 128, 128) and n == 1024
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((4, n)).astype(np.float32)
+    want = [jsb.bell_matvec(jnp.asarray(data), jnp.asarray(cols),
+                            jnp.asarray(xx), interpret=True) for xx in x]
+    got = tsb.bell_matvec_plain(_t(data), _t(cols), _t(x))
+    _close([got], [np.stack(want)], rtol=1e-5, what="bell_matvec bs=128")
+
+    op = bell_from_dense(lap, bs=128, dtype=np.float32)
+    v, vp, scalars, _ = _state_inputs(op, rng.standard_normal((4, n)), 2,
+                                      False, a=lap)
+    one, zero = np.ones((4, n)), np.zeros((4, n))
+    step = jax.vmap(lambda so, si, tt, vv, vvp, s8: jls.fused_step_bell(
+        jnp.asarray(data), jnp.asarray(cols), so, si, tt, vv, vvp, s8,
+        interpret=True))
+    j = step(*[jnp.asarray(y) for y in (one, one, zero, v, vp)],
+             tuple(jnp.asarray(y)[:, None] for y in scalars))
+    got = tls.fused_step_bell_plain(_t(data), _t(cols), _t(one), _t(one),
+                                    _t(zero), _t(v), _t(vp),
+                                    tuple(_t(y) for y in scalars))
+    want = [np.asarray(j[0]).reshape(-1), np.asarray(j[1]).reshape(-1),
+            j[2], *[np.asarray(y).reshape(-1) for y in j[3]]]
+    _close([got[0], got[1], got[2], *got[3]], want,
+           what="fused_step_bell bs=128", floor=1.0)
+
+
+def test_bell_route_and_split_choice():
+    """The card's route for a blocked-ELL matvec (K2, K4) by the table's
+    shape, K4's split count of its f64 tile, and when the tile may stage
+    with 16-byte copies: pure functions of shapes and addresses."""
+    shared = (torch.zeros(64, 3, 128, 128), torch.zeros(64, 3,
+                                                        dtype=torch.int32))
+    per_lane = (torch.zeros(2, 4, 3, 8, 8), torch.zeros(2, 4, 3,
+                                                        dtype=torch.int32))
+    assert tsb.route(*shared) == "tiled"
+    assert tsb.route(*per_lane) == "lane"
+    assert tsb.route(shared[0], per_lane[1]) == "lane"   # cols per lane
+    # the main path: 64 lanes x 64 block rows of 128 fill 64 of 132 SMs
+    # with the 128-row tile, so its 12 chunks split in two
+    assert tls.bell_splits(64, 64, 128, 3, 132) == 2
+    assert tls.bell_splits(65, 8, 128, 3, 132) == 3     # capped by chunks
+    assert tls.bell_splits(3, 13, 8, 1, 132) == 1       # one chunk
+    assert tls.bell_splits(4096, 64, 128, 3, 132) == 1  # the card is full
+    assert 1 <= tls.bell_splits(1, 1, 4096, 64, 132) <= 8
+    x = torch.zeros(4, 1025)
+    assert tsb.vec16(128, shared[0], x)
+    assert not tsb.vec16(6, x)                     # 24-byte rows
+    assert not tsb.vec16(128, x[:, 1:])            # off the 16-byte grid
+    assert tsb.vec16(2, torch.zeros(3, dtype=torch.float64))
 
 
 def test_ops_rejects_unknown_devices():
