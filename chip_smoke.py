@@ -10,14 +10,17 @@ It runs every phase, in order, each printing one JSON line:
   3. kernels  -- K1-K7 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
-                 the least time the card could take (bound); K2 and K4
-                 on the tiled route, with the same bits from two launches
-                 (the sparse and trace phases assert that every K2 and K4
-                 launch took it), timed as CUDA-graph replays because
-                 their wrappers' host work outlasts them; K3 also on a
-                 mid-solve state with its live-row count (the bound counts
-                 the live rows), with its matvec and tail launches timed
-                 apart; K7 with its route and its TFLOP/s;
+                 the least time the card could take (bound); K1, K2, K4,
+                 K5 and K6 timed as CUDA-graph replays (graph_ms), because
+                 a wrapper's host work can outlast its kernel, with the
+                 calls back to back beside them (wrapper_ms); K2 and K4
+                 on the tiled route and K5 on the wgmma route, with the
+                 same bits from two launches (the sparse and trace phases
+                 assert that every K2, K4 and K5 launch took it); K6 one
+                 device kernel a call, with the same bits twice; K3 also
+                 on a mid-solve state with its live-row count (the bound
+                 counts the live rows), with its matvec and tail launches
+                 timed apart; K7 with its route and its TFLOP/s;
   4. dense    -- RBF kernel at Abalone's N = 4177 (paper Table 1), K = 64
                  lanes: solve_batch (fused, reorth; every K3 launch gets the
                  live-row count), a greedy-MAP argmax round over stacked
@@ -50,13 +53,13 @@ It runs every phase, in order, each printing one JSON line:
                  device time of every kernel it launched (torch.profiler;
                  CUDA events for the one-launch attention call), so the
                  card's idle share is 1 - device / host;
- 11. yardsticks -- the BSR @ dense library calls beside K2, K4 and K5,
-                 each timed in turns with its kernel (kernel, library,
-                 library, kernel; three rounds; medians and their factor;
-                 the kernel both as calls back to back and as a CUDA-graph
-                 replay), last: they may run Triton kernels, after which
-                 the profiler misses calls that launch only the port's
-                 kernels.
+ 11. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+                 K6 (torch.bmm + dot), each timed in turns with its kernel
+                 (kernel, library, library, kernel; three rounds; medians
+                 and their factor; the kernel both as calls back to back
+                 and as a CUDA-graph replay), last: the BSR calls may run
+                 Triton kernels, after which the profiler misses calls
+                 that launch only the port's kernels.
 
 Every path phase holds the port against the same calls on
 ``backend='reference'`` on the same card and against dense solves for the
@@ -85,6 +88,13 @@ PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
           "bilinear", "attention", "coo", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
+# the device functions of csrc/ as the profiler names them
+PORT_KERNELS = ("gql_update_kernel", "bell_fma_kernel", "bell_dmma_kernel",
+                "bell_lane_kernel", "dmma_matvec_kernel", "lane_matvec_kernel",
+                "shared_matvec_kernel", "fused_tail_kernel",
+                "bell_mrhs_kernel", "bell_mrhs_wgmma_kernel",
+                "fused_matvec_kernel", "flash_fwd_fma_kernel",
+                "flash_fwd_mma_kernel", "flash_fwd_wgmma_kernel")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # dense flops/s for each type. f64 is the FP64 tensor-core rate, the
@@ -384,6 +394,7 @@ class Smoke:
         self.attention = None
         self.setup_s = {}     # seconds of the problems' set-up steps
         self.late_library = []  # (name, kernel, library call): timed last
+        self.kernels_per_call = {}  # name -> device kernels a call runs
 
     # -- problems --------------------------------------------------------
 
@@ -564,6 +575,7 @@ class Smoke:
         normwise against each output's largest entry, or K7's per row."""
         abs_err, rel_err = err(got, want)
         per_call = sum(c for _, c in device_kernels(fn).values())
+        self.kernels_per_call[name] = per_call
         if callable(library_ms):
             self.late_library.append((name, fn, library_ms))
             library_ms = None
@@ -616,13 +628,15 @@ class Smoke:
         want = gu.gql_update_plain(*k1_in)
         nb = nbytes(*k1_in) + nbytes(*got)
         bms, bby = bound(nb, 55 * K, torch.float64)
+        def k1():
+            return ops.gql_update(*k1_in)
+
         self._kernel_line(
             "gql_update", "src/repro_torch/kernels/csrc/gql_update.cu",
             "src/repro/kernels/gql_update.py:76", got, want, 1e-12,
-            "f64; FMA contraction and operation order only",
-            cuda_ms(lambda: ops.gql_update(*k1_in)),
+            "f64; FMA contraction and operation order only", graph_ms(k1),
             cuda_ms(lambda: gu.gql_update_plain(*k1_in)), bms, bby, None,
-            lambda: ops.gql_update(*k1_in))
+            k1, extra={"wrapper_ms": cuda_ms(k1)})
 
         # K3 with the banked basis (the fused solve_batch path), at step 3
         # with all M = 161 rows read (no live-row count: PR 13's line)
@@ -764,16 +778,37 @@ class Smoke:
         nb = nbytes(bell.data, bell.cols, xb) + nbytes(*got)
         bms, bby = bound(nb, 2 * PROBES * nnz, torch.float32)
         xt5 = xb.reshape(PROBES, -1).to(torch.float32).T.contiguous()
+
+        def k5():
+            return ops.bell_matvec_mrhs(bell.data, bell.cols, xb)
+
+        # the trace path's table takes the 3xTF32 route, with the same bits
+        # on a second launch
+        k5_route = sb.mrhs_route(bell.data, bell.cols)
+        wg_before = sb.MRHS_ROUTES["wgmma"]
+        k5_same = torch.equal(k5(), got[0])
+        assert k5_route == "wgmma" and sb.MRHS_ROUTES["wgmma"] == \
+            wg_before + 1, "K5 not on the wgmma route"
+        assert k5_same, "K5: two launches differ"
+        k5_ms = graph_ms(k5)
         self._kernel_line(
             "bell_matvec_mrhs", "src/repro_torch/kernels/csrc/bell_mrhs.cu",
             "src/repro/kernels/spmv_bell.py:73", got, want, 1e-5,
-            "f32 accumulation (the kernel's contract) in another order",
-            cuda_ms(lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb)),
+            "f32 accumulation (the kernel's contract) on the tensor cores "
+            "(3xTF32, about 2^-21 a product) in another order", k5_ms,
             cuda_ms(lambda: sb.bell_matvec_mrhs_plain(bell.data, bell.cols,
                                                       xb)),
-            bms, bby, lambda: torch.matmul(bsr32, xt5),
-            lambda: ops.bell_matvec_mrhs(bell.data, bell.cols, xb),
-            "the SpMM (BSR @ dense, f32, 512 right-hand sides)")
+            bms, bby, lambda: torch.matmul(bsr32, xt5), k5,
+            "the SpMM (BSR @ dense, f32, 512 right-hand sides)",
+            extra={"route": k5_route, "same_bits": k5_same,
+                   "wrapper_ms": cuda_ms(k5),
+                   "per_launch_ms": per_launch_ms(k5),
+                   # the tensor cores' work: the dense blocks' products, 3
+                   # tf32 products each (3xTF32)
+                   # the tensor cores' rate: every block's dense product,
+                   # three tf32 products each (3xTF32)
+                   "tf32_tflops": 3 * 2 * PROBES * nr * kb * bs * bs
+                   / k5_ms / 1e9})
 
         # K6 on the bilinear path's operands: the 16 f32 systems and the
         # f64 query lanes (the Lanczos vectors it is handed are f64; it
@@ -793,14 +828,25 @@ class Smoke:
             y = torch.bmm(a32, xq32[:, :, None])[:, :, 0]
             return y, torch.sum(xq32 * y, dim=-1)
 
+        def k6():
+            return ops.fused_matvec(a32, xq)
+
+        k6_same = all(torch.equal(u, w) for u, w in zip(k6(), got))
+        assert k6_same, "K6: two launches differ"
+        k6_ms = graph_ms(k6)
         self._kernel_line(
             "fused_matvec", "src/repro_torch/kernels/csrc/bilinear_matvec.cu",
             "src/repro/kernels/bilinear_matvec.py:58", got, want, 1e-5,
             "f32 accumulation (the kernel's contract) in another order",
-            cuda_ms(lambda: ops.fused_matvec(a32, xq)),
-            cuda_ms(lambda: bm.fused_matvec_plain(a32, xq)), bms, bby,
-            cuda_ms(bmm_dot), lambda: ops.fused_matvec(a32, xq),
-            "torch.bmm for y and a dot product for alpha (f32 x)")
+            k6_ms, cuda_ms(lambda: bm.fused_matvec_plain(a32, xq)), bms, bby,
+            bmm_dot, k6,
+            "torch.bmm for y and a dot product for alpha (f32 x)",
+            extra={"same_bits": k6_same, "wrapper_ms": cuda_ms(k6),
+                   "per_launch_ms": per_launch_ms(k6),
+                   # A's bytes over the graph replay's time
+                   "a_tb_per_s": nbytes(a32) / k6_ms / 1e9})
+        assert self.kernels_per_call["fused_matvec"] == 1, \
+            "K6 is more than one device kernel a call"
 
         # K7 on the attention path's prefill: q (1, 4096, 128, 128), k and
         # v (1, 4096, 8, 128) in bf16, causal; the plain version runs in
@@ -1150,9 +1196,11 @@ class Smoke:
                 op, PROBES, block_size=BLOCK, solver=BIFSolver.create(
                     backend=backend, **TRACE_BLOCK), **iv)
 
+        from repro_torch.kernels import spmv_bell as sb
         reset_launches()
         res_p, t_p = self.path_call(block("pallas"))
         k5 = LAUNCHES["bell_matvec_mrhs"]
+        k5_routes = dict(sb.MRHS_ROUTES)
         res_f, t_f = self.path_call(lambda: logdet_quad(
             op, SCALAR_PROBES, block_size=1, solver=BIFSolver.create(
                 backend="fused", **TRACE_SCALAR), **iv))
@@ -1217,8 +1265,10 @@ class Smoke:
               "scalar_fused": line_f,
               "seconds": {"block_pallas": t_p, "block_reference": t_r,
                           "scalar_fused": t_f},
-              "launches": launches, "bell_routes": routes})
+              "launches": launches, "bell_routes": routes,
+              "k5_routes": k5_routes})
         assert_tiled(launches, routes)
+        assert k5_routes["wgmma"] == k5, f"K5 off the wgmma route: {k5_routes}"
         # K5: once at block_init, then once per block step of the driver;
         # every lane certifies before the cap, so the longest lane steps
         # in every round and the steps are its iterations less one
@@ -1462,11 +1512,15 @@ class Smoke:
                   "device_s_from": dev_from,
                   "idle_share": 1.0 - dev_s / host_s,
                   "profiled_call_s": prof_s,
-                  "kernels_ms": dict(top)})
+                  "kernels_ms": dict(top),
+                  # the port's own kernels, whether or not among the top
+                  "port_kernels_ms": {k: ms for k, ms in kernels.items()
+                                      if k in PORT_KERNELS}})
 
     def phase_yardsticks(self):
-        """The BSR @ dense yardsticks (K2, K4, K5), last, because they may
-        run Triton kernels: each kernel timed in turns with its library
+        """The library yardsticks (BSR @ dense for K2, K4 and K5; torch.bmm
+        + dot for K6), last, because the BSR calls may run Triton kernels:
+        each kernel timed in turns with its library
         call (kernel, library, library, kernel; three rounds), since these
         yardsticks move between calls. The line's library time is the
         median of the library's six readings; the first library call (a

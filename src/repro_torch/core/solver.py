@@ -196,6 +196,15 @@ class QuadState(NamedTuple):
         return self.st.done
 
 
+# The threading contract of QuadState's fields, as the reference states it
+# (repro/core/solver.py): per-lane fields are frozen per lane by the step
+# drivers, carried ones are threaded whole through every drive, prepared
+# ones are resolved once by init_state. The three partition the fields.
+QUADSTATE_PER_LANE = ("st", "basis", "coeffs")
+QUADSTATE_CARRIED = ("step",)
+QUADSTATE_PREPARED = ("op", "lam_min", "lam_max")
+
+
 def _bracket4(st, coeffs, lam_min, lam_max):
     """(lower, upper, loose_lower, loose_upper): the tight Radau bracket
     and the loose Gauss/Lobatto pair, oriented per fn. The GQL views for

@@ -56,11 +56,39 @@ _ENTRY = {(torch.float32, torch.float32): "fused_matvec_f32_f32",
           (torch.bfloat16, torch.float64): "fused_matvec_bf16_f64"}
 
 
+def shares(rows: int, ctas: int) -> list:
+    """The card's partition of the ``B * N`` rows of A among its CTAs: CTA
+    ``c`` takes rows ``[c * rows // ctas, (c + 1) * rows // ctas)``, one
+    contiguous run each, with ``ctas = min(SMs, rows)`` so that none is
+    empty. A pure function of the shapes and the SM count, as the kernel
+    computes it, so a call's sums have one order on one card."""
+    ctas = min(ctas, rows)
+    return [(c * rows // ctas, (c + 1) * rows // ctas) for c in range(ctas)]
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# Per (device, stream): K6's counters of finished CTAs per system. A launch
+# leaves them zero, so they are zeroed once, here, and never again.
+_COUNTERS: dict = {}
+
+
+def _counters(nb: int, device) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < nb:
+        c = torch.zeros(max(nb, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
 def fused_matvec_cuda(a: torch.Tensor, x: torch.Tensor):
     """Launch K6 on CUDA tensors: ``a`` (B, N, N) contiguous f32 or bf16
-    (read as it is, never padded or copied), ``x`` (B, N) f32 or f64
-    (another float type is rounded to f32 first). Returns f32
-    ``(y (B, N), alpha (B,))``."""
+    (read as it is, never padded or copied), ``x`` (B, N) f32 or f64 with
+    any strides (another float type is rounded to f32 first). One kernel,
+    one launch. Returns f32 ``(y (B, N), alpha (B,))``."""
     check_shapes(a, x)
     if x.device.type != "cuda" or a.device != x.device:
         raise ValueError(f"fused_matvec_cuda needs a and x on one CUDA "
@@ -70,26 +98,28 @@ def fused_matvec_cuda(a: torch.Tensor, x: torch.Tensor):
                         f"{a.dtype}")
     if not a.is_contiguous():
         raise ValueError("fused_matvec_cuda needs a contiguous a (the "
-                         "kernel reads it in place)")
+                         "kernel streams it as one run)")
     if x.numel() == 0:
         raise ValueError(f"fused_matvec_cuda launches on nonempty inputs "
                          f"only, got x {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.float64):
         x = x.to(torch.float32)
-    x = x.contiguous()
     nb, n = x.shape
-    y = torch.empty((nb, n), dtype=torch.float32, device=x.device)
-    alpha = torch.empty((nb,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((nb, -(-n // 32)), dtype=torch.float32,
-                          device=x.device)
+    dev = x.device
+    sms = _sms(dev)
+    y = torch.empty((nb, n), dtype=torch.float32, device=dev)
+    alpha = torch.empty((nb,), dtype=torch.float32, device=dev)
+    partial = torch.empty((sms + nb,), dtype=torch.float32, device=dev)
     fn = getattr(_build.load("bilinear_matvec"), _ENTRY[(a.dtype, x.dtype)])
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         rc = fn(_build.ptr_array([a, x]),
-                _build.ptr_array([y, alpha, partial]),
-                (ctypes.c_longlong * 2)(nb, n), _build.stream_of(x))
+                _build.ptr_array([y, alpha, partial, _counters(nb, dev)]),
+                (ctypes.c_longlong * 5)(nb, n, x.stride(0), x.stride(1),
+                                        sms),
+                _build.stream_of(x))
     _build.check(rc, "fused_matvec")
     return y, alpha

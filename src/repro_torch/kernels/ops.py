@@ -29,8 +29,10 @@ LAUNCHES = {"gql_update": 0, "bell_matvec": 0, "fused_step_dense": 0,
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the per-route counts of K2, K3/K4 and K7."""
-    for counts in (LAUNCHES, _sb.ROUTES, _ls.ROUTES, _fa.ROUTES):
+    """Zero ``LAUNCHES`` and the per-route counts of K2, K3/K4, K5 and
+    K7."""
+    for counts in (LAUNCHES, _sb.ROUTES, _sb.MRHS_ROUTES, _ls.ROUTES,
+                   _fa.ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -110,8 +112,9 @@ def fused_matvec(a, x, *, bm: int = 128, bn: int = 128):
 
     ``bm``/``bn`` are the reference's tile sizes, kept for its
     signature. Neither path uses them: the plain version is one einsum,
-    and the card's kernel tiles by its own layout (a warp per row, 32
-    rows of one system per CTA), so they change nothing in the result.
+    and the card's kernel streams A by its own layout (one CTA per SM,
+    each an equal run of rows; a warp per row), so they change nothing in
+    the result.
     """
     if not _on_cuda(x, "fused_matvec"):
         return _bmv.fused_matvec_plain(a, x)
@@ -150,3 +153,11 @@ def mha_flash(q, k, v, *, causal: bool = True, bt: int = 128,
     if on_cuda:
         LAUNCHES["flash_attention"] += 1
     return out
+
+
+# The reference's two other public names: the fused step as a drop-in for
+# ``core.gql.gql_step`` (K3 or K4 where the operator has the sandwich form;
+# ``rows`` bounds K3's reorth passes to the live basis rows) and the dense
+# to blocked-ELL converter.
+gql_step_fused = _ls.gql_step_fused
+dense_to_bell = _sb.dense_to_bell

@@ -24,7 +24,10 @@ route.
 K5, the multi-right-hand-side SpMM of block-Krylov mode, has the same
 contract over row-stacked blocks x (L, b, N): ``bell_matvec_mrhs_plain``
 beside ``bell_matvec_mrhs_cuda`` (``csrc/bell_mrhs.cu``), picked by
-``kernels.ops.bell_matvec_mrhs``.
+``kernels.ops.bell_matvec_mrhs``. On the card K5 takes one of two routes
+(``mrhs_route``): ``"wgmma"`` (3xTF32 on the tensor cores) for a shared
+f32 table with ``bs`` a multiple of 128, ``"fma"`` otherwise;
+``MRHS_ROUTES`` counts its launches by route.
 """
 from __future__ import annotations
 
@@ -159,11 +162,41 @@ def bell_matvec_mrhs_plain(data: torch.Tensor, cols: torch.Tensor,
     return bell_matvec_ref(d32[:, None], cols[:, None], x32)
 
 
+# Launches of K5 by route (csrc/bell_mrhs.cu).
+MRHS_ROUTES = {"wgmma": 0, "fma": 0}
+MRHS_TILE = (128, 128)  # the wgmma route's CTA: output rows x right-hand sides
+
+
+def mrhs_route(data: torch.Tensor, cols: torch.Tensor) -> str:
+    """The route of K5 on the card: ``"wgmma"`` (3xTF32 on the tensor
+    cores) for one f32 table shared by every right-hand side with ``bs`` a
+    multiple of 128, the tile's output rows; ``"fma"`` (CUDA-core f32 FMA)
+    for a table per lane, f64 data or another ``bs``. Reads shapes and
+    types only."""
+    bs = data.shape[-1]
+    shared = data.ndim == 4 and cols.ndim == 2
+    return ("wgmma" if shared and data.dtype == torch.float32
+            and bs % MRHS_TILE[0] == 0 else "fma")
+
+
+def mrhs_grid(route: str, groups: int, rows: int, nr: int, bs: int) -> tuple:
+    """The launch grid of K5 (x, y, z) on each route: the wgmma route
+    takes 128 output rows of a block row for 128 right-hand sides a CTA,
+    right-hand-side tiles along x (the CTAs that share a block row's table
+    run side by side); the fma route 128 output rows for 64, block rows
+    along x, one grid slice per table."""
+    out_tiles = nr * -(-bs // MRHS_TILE[0])
+    if route == "wgmma":
+        return (-(-rows // MRHS_TILE[1]), out_tiles, groups)
+    return (out_tiles, -(-rows // 64), groups)
+
+
 def bell_matvec_mrhs_cuda(data: torch.Tensor, cols: torch.Tensor,
                           x: torch.Tensor) -> torch.Tensor:
-    """Launch K5 on CUDA tensors: x (L, b, N) with N = R * bs, any float
-    dtype (rounded to f32 once); ``data`` (R, K, bs, bs) shared by all
-    L*b rows or (L, R, K, bs, bs) per lane; f32 result of x's shape."""
+    """Launch K5 on CUDA tensors: x (L, b, N) with N = R * bs, read in its
+    own type if f32 or f64 (another float type is rounded to f32 first);
+    ``data`` (R, K, bs, bs) shared by all L*b rows or (L, R, K, bs, bs) per
+    lane; f32 result of x's shape. The route is ``mrhs_route``'s."""
     if x.device.type != "cuda":
         raise ValueError(f"bell_matvec_mrhs_cuda needs CUDA tensors, got "
                          f"{x.device}")
@@ -182,8 +215,14 @@ def bell_matvec_mrhs_cuda(data: torch.Tensor, cols: torch.Tensor,
     if x.numel() == 0:
         raise ValueError(f"bell_matvec_mrhs_cuda launches on nonempty "
                          f"inputs only, got x {tuple(x.shape)}")
+    which = mrhs_route(data, cols)
+    if which == "wgmma" and data.data_ptr() % 16:
+        raise ValueError("bell_matvec_mrhs_cuda: the wgmma route reads the "
+                         "table by TMA and needs it 16-byte aligned")
     lanes, b, n = x.shape
-    xf = x.to(torch.float32).contiguous()
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    x = x.contiguous()
     if data.ndim == 4:      # one table: every row of every lane in one GEMM
         groups, rows = 1, lanes * b
     else:
@@ -191,18 +230,21 @@ def bell_matvec_mrhs_cuda(data: torch.Tensor, cols: torch.Tensor,
     dims = (ctypes.c_longlong * 7)(
         groups, rows, r, k, bs, _lane_stride(data, 4, groups),
         _lane_stride(cols, 2, groups))
-    y = torch.empty_like(xf)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     lib = _build.load("bell_mrhs")
-    fn = lib.bell_matvec_mrhs_f64 if data.dtype == torch.float64 \
-        else lib.bell_matvec_mrhs_f32
+    dt = {torch.float32: "f32", torch.float64: "f64"}
+    fn = getattr(lib, f"bell_matvec_mrhs_wgmma_{dt[x.dtype]}" if which ==
+                 "wgmma" else
+                 f"bell_matvec_mrhs_{dt[data.dtype]}_{dt[x.dtype]}")
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        rc = fn(_build.ptr_array([data, cols, xf]), _build.ptr_array([y]),
+        rc = fn(_build.ptr_array([data, cols, x]), _build.ptr_array([y]),
                 dims, _build.stream_of(x))
     _build.check(rc, "bell_matvec_mrhs")
+    MRHS_ROUTES[which] += 1
     return y
 
 

@@ -212,13 +212,73 @@ def test_k5_matches_plain(cuda, per_lane, x_dtype, lanes, b, bs):
         cols = torch.stack([cols] * lanes)
     x = torch.as_tensor(rng.standard_normal((lanes, b, data.shape[-4] * bs)),
                         dtype=x_dtype, device=cuda)
-    before = ops.LAUNCHES["bell_matvec_mrhs"]
+    which = tsb.mrhs_route(data, cols)
+    assert which == ("wgmma" if bs == 128 and not per_lane else "fma")
+    before, routed = ops.LAUNCHES["bell_matvec_mrhs"], tsb.MRHS_ROUTES[which]
     got = ops.bell_matvec_mrhs(data, cols, x)
     assert ops.LAUNCHES["bell_matvec_mrhs"] == before + 1
+    assert tsb.MRHS_ROUTES[which] == routed + 1
     assert got.dtype == torch.float32 and got.shape == x.shape
     _close([got], [tsb.bell_matvec_mrhs_plain(data, cols, x)], 1e-5, "K5")
     again = ops.bell_matvec_mrhs(data, cols, x)
     assert torch.equal(got, again)      # no atomics: the same bits
+
+
+# (lanes, b, n, bs): the trace path's 512 right-hand sides (64 lanes of 8)
+# on the ring lattice's table (Kb = 3); 40 and 300 rows, which are no
+# multiple of the 128-row tile; one row; bs = 256, two output tiles a
+# block row
+K5_WGMMA_CASES = [(64, 8, 2048, 128), (5, 8, 1024, 128), (3, 100, 1024, 128),
+                  (1, 1, 512, 128), (4, 8, 1024, 256)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes,b,n,bs", K5_WGMMA_CASES)
+def test_k5_wgmma_route_matches_plain(cuda, x_dtype, lanes, b, n, bs):
+    """K5's 3xTF32 route on a shared f32 table against its plain version
+    (f32 FMA sums): within the f32 contract's 1e-5, every launch on the
+    wgmma route, the same bits on two launches."""
+    rng = np.random.default_rng(n + b)
+    d_np, c_np, _ = tsb.dense_to_bell(_bell_table(n, bs, 11), bs=bs)
+    data = torch.as_tensor(d_np, device=cuda)
+    cols = torch.as_tensor(c_np, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((lanes, b, n)) / n ** 0.5,
+                        dtype=x_dtype, device=cuda)
+    assert tsb.mrhs_route(data, cols) == "wgmma"
+    routed = tsb.MRHS_ROUTES["wgmma"]
+    got = ops.bell_matvec_mrhs(data, cols, x)
+    assert tsb.MRHS_ROUTES["wgmma"] == routed + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close([got], [tsb.bell_matvec_mrhs_plain(data, cols, x)], 1e-5,
+           "K5 wgmma")
+    assert torch.equal(ops.bell_matvec_mrhs(data, cols, x), got)
+
+
+@pytest.mark.parametrize("bs,per_lane", [(128, False), (32, False),
+                                         (128, True)])
+def test_k5_nan_in_x_lands_where_the_plain_version_puts_it(cuda, bs,
+                                                          per_lane):
+    """A NaN planted in X gives non-finite entries exactly where the plain
+    version's are, on both routes (the padding blocks point at column 0
+    and carry a NaN there to every row that has one)."""
+    n, lanes, b = 1024, 4, 8
+    d_np, c_np, _ = tsb.dense_to_bell(_bell_table(n, bs, 12), bs=bs)
+    data = torch.as_tensor(d_np, device=cuda)
+    cols = torch.as_tensor(c_np, device=cuda)
+    if per_lane:
+        data = torch.stack([data] * lanes)
+        cols = torch.stack([cols] * lanes)
+    rng = np.random.default_rng(13)
+    for col in (5, 700):
+        x = torch.as_tensor(rng.standard_normal((lanes, b, n)), device=cuda)
+        x[2, 3, col] = float("nan")
+        got = ops.bell_matvec_mrhs(data, cols, x)
+        want = tsb.bell_matvec_mrhs_plain(data, cols, x)
+        bad = ~torch.isfinite(want)
+        assert bool(bad.any())
+        assert torch.equal(~torch.isfinite(got), bad)
+        _close([torch.where(bad, 0.0, got)], [torch.where(bad, 0.0, want)],
+               1e-5, "K5 finite entries")
 
 
 def test_k5_refuses_empty_inputs(cuda):
@@ -507,6 +567,69 @@ def test_k6_matches_plain(cuda, b, n, a_dtype, x_dtype):
     _close([alpha], [alw], tol * 5, "K6 alpha")
     y2, alpha2 = ops.fused_matvec(a, x)
     assert torch.equal(y, y2) and torch.equal(alpha, alpha2)  # no atomics
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` runs, after a warm
+    call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("n", [7, 1001, 4177])
+@pytest.mark.parametrize("systems", [3, 16])
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+def test_k6_shares_across_systems(cuda, n, systems, a_dtype, x_dtype):
+    """K6's persistent shares of the B * N rows cross system boundaries
+    (at 16 x 4177 the main path's shape): y and alpha against the plain
+    version, one device kernel per call, the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(n + systems)
+    a = torch.randn((systems, n, n), generator=g, device=cuda).to(a_dtype)
+    x = torch.randn((systems, n), generator=g, device=cuda,
+                    dtype=torch.float64).to(x_dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    parts = tbm.shares(systems * n, sms)
+    crossing = any(lo // n != (hi - 1) // n for lo, hi in parts)
+    # 16 systems of 1001 or 4177 rows split across 132 SMs: some share
+    # crosses a system boundary and restages x (3 divides 132, so the
+    # shares of 3 systems end on their boundaries)
+    assert crossing or n == 7 or sms % systems == 0
+    y, alpha = ops.fused_matvec(a, x)
+    yw, alw = tbm.fused_matvec_plain(a, x)
+    tol = 1e-5 if a_dtype == torch.float32 else 3e-2
+    _close([y], [yw], tol, "K6 y")
+    _close([alpha], [alw], tol * 5, "K6 alpha")
+    assert _device_kernels(lambda: ops.fused_matvec(a, x)) == 1
+    y2, alpha2 = ops.fused_matvec(a, x)
+    assert torch.equal(y, y2) and torch.equal(alpha, alpha2)
+
+
+def test_k6_reads_a_strided_x_in_place(cuda):
+    """x as a column slice and as a transposed view: read with its strides,
+    in one kernel (no copy), equal to the contiguous call's bits and to the
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n = 5, 1001
+    a = torch.randn((b, n, n), generator=g, device=cuda)
+    wide = torch.randn((b, 2 * n), generator=g, device=cuda,
+                       dtype=torch.float64)
+    views = [wide[:, ::2], wide[:, :n].T.contiguous().T]
+    for x in views:
+        assert not x.is_contiguous()
+        y, alpha = ops.fused_matvec(a, x)
+        yc, alc = ops.fused_matvec(a, x.contiguous())
+        assert torch.equal(y, yc) and torch.equal(alpha, alc)
+        yw, alw = tbm.fused_matvec_plain(a, x)
+        _close([y], [yw], 1e-5, "K6 strided y")
+        _close([alpha], [alw], 5e-5, "K6 strided alpha")
+        assert _device_kernels(lambda: ops.fused_matvec(a, x)) == 1
 
 
 def test_k6_refuses_what_it_does_not_take(cuda):

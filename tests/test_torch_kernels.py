@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import gql_update as jgu  # noqa: E402
 from repro.kernels import lanczos_step as jls  # noqa: E402
 from repro.kernels import spmv_bell as jsb  # noqa: E402
+from repro_torch.kernels import bilinear_matvec as tbm  # noqa: E402
 from repro_torch.kernels import gql_update as tgu  # noqa: E402
 from repro_torch.kernels import lanczos_step as tls  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -353,6 +354,88 @@ def test_bell_route_and_split_choice():
     assert not tsb.vec16(6, x)                     # 24-byte rows
     assert not tsb.vec16(128, x[:, 1:])            # off the 16-byte grid
     assert tsb.vec16(2, torch.zeros(3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("rows,ctas", [(16 * 4177, 132), (3 * 1001, 132),
+                                       (112, 132), (21, 132), (5, 1)])
+def test_k6_shares_partition_the_rows(rows, ctas):
+    """K6's persistent shares: contiguous, nonempty, within one row of each
+    other, covering every row once; the owner of a row, as the kernel
+    finds it for the last-CTA count of a system, is the CTA whose share
+    holds it."""
+    parts = tbm.shares(rows, ctas)
+    assert len(parts) == min(rows, ctas)
+    assert parts[0][0] == 0 and parts[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    sizes = [hi - lo for lo, hi in parts]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    g = len(parts)
+    for c, (lo, hi) in enumerate(parts):
+        for r in {lo, hi - 1, (lo + hi) // 2}:
+            assert ((r + 1) * g - 1) // rows == c
+
+
+def test_k5_route_and_grid():
+    """K5's route on the card and its launch grid: pure functions of the
+    table's shape and type."""
+    def table(bs, lanes=None, dtype=torch.float32):
+        lead = () if lanes is None else (lanes,)
+        return (torch.zeros(lead + (4, 3, bs, bs), dtype=dtype),
+                torch.zeros(lead + (4, 3), dtype=torch.int32))
+    assert tsb.mrhs_route(*table(128)) == "wgmma"
+    assert tsb.mrhs_route(*table(256)) == "wgmma"
+    assert tsb.mrhs_route(*table(8)) == "fma"
+    assert tsb.mrhs_route(*table(32)) == "fma"
+    assert tsb.mrhs_route(*table(128, lanes=2)) == "fma"
+    assert tsb.mrhs_route(*table(128, dtype=torch.float64)) == "fma"
+    # the trace path: 64 block rows of 128, 512 right-hand sides
+    assert tsb.mrhs_grid("wgmma", 1, 512, 64, 128) == (4, 64, 1)
+    assert tsb.mrhs_grid("wgmma", 1, 40, 8, 256) == (1, 16, 1)
+    assert tsb.mrhs_grid("fma", 5, 8, 13, 32) == (13, 1, 5)
+    assert tsb.mrhs_grid("fma", 1, 512, 64, 128) == (64, 8, 1)
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10-bit mantissa), to nearest, ties away from
+    zero: cvt.rna.tf32.f32 by bit operations on the sign-magnitude word."""
+    bits = v.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_k5_3xtf32_split_keeps_the_f32_contract():
+    """K5's wgmma route, emulated: each f32 operand split into tf32 hi and
+    lo parts, Y = Xhi Dhi + Xhi Dlo + Xlo Dhi with f32 sums, on the trace
+    cell's table (the ring-lattice Laplacian, bs = 128, Kb = 3, here at
+    N = 2048) and its right-hand sides (Rademacher probes over sqrt(N), and
+    Gaussian ones of the same scale): within 1e-5 normwise of the f64
+    product of the f32-rounded operands, where tf32 alone (hi only) is
+    not."""
+    from repro_torch.data import graph_laplacian
+    n = 2048
+    d_np, c_np, _ = tsb.dense_to_bell(
+        graph_laplacian(n, mean_degree=12, rewire=0.0, seed=0), bs=128)
+    data, cols = _t(d_np), _t(c_np)
+    assert tuple(data.shape) == (16, 3, 128, 128)
+    rng = np.random.default_rng(4)
+    probes = rng.choice([-1.0, 1.0], (64, n)) / n ** 0.5
+    gauss = rng.standard_normal((64, n)) / n ** 0.5
+    for x64 in (probes, gauss):
+        x = _t(x64).to(torch.float32)
+        want = tsb.bell_matvec_ref(data.double(), cols, x.double())
+        dh = _tf32_rna(data)
+        dl = _tf32_rna(data - dh)
+        xh = _tf32_rna(x)
+        xl = _tf32_rna(x - xh)
+        assert torch.equal(_tf32_rna(dh), dh) and torch.equal(_tf32_rna(xl),
+                                                              xl)
+        parts = [tsb.bell_matvec_ref(d, cols, v)
+                 for d, v in ((dh, xl), (dl, xh), (dh, xh))]
+        three = parts[0] + parts[1] + parts[2]
+        scale = want.abs().max()
+        err3 = float((three.double() - want).abs().max() / scale)
+        err1 = float((parts[2].double() - want).abs().max() / scale)
+        assert err3 <= 1e-5, err3
+        assert err1 > 1e-5, err1
 
 
 def test_ops_rejects_unknown_devices():

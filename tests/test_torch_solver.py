@@ -627,3 +627,55 @@ def test_live_rows_of_a_state_from_the_reference(monkeypatch):
                                   np.asarray(want.certified))
     _close(got.lower.numpy(), want.lower, 1e-12, "lower")
     _close(got.upper.numpy(), want.upper, 1e-12, "upper")
+
+
+# ---------------------------------------------------------------------------
+# the reference's public names that the port once lacked: the QuadState
+# threading registry and the two kernel-layer exports
+
+
+@pytest.mark.parametrize("name", ["QUADSTATE_PER_LANE", "QUADSTATE_CARRIED",
+                                  "QUADSTATE_PREPARED"])
+def test_quadstate_registry_equals_reference(name):
+    from repro.core import solver as jsolver
+    from repro_torch.core import solver as tsolver
+    assert getattr(tsolver, name) == getattr(jsolver, name)
+
+
+def test_quadstate_registries_partition_the_fields():
+    from repro_torch.core import solver as tsolver
+    claimed = (tsolver.QUADSTATE_PER_LANE + tsolver.QUADSTATE_CARRIED
+               + tsolver.QUADSTATE_PREPARED)
+    assert sorted(claimed) == sorted(tsolver.QuadState._fields)
+    assert len(set(claimed)) == len(claimed)
+
+
+@pytest.mark.parametrize("bs,k_max", [(8, None), (16, None), (8, 9)])
+def test_dense_to_bell_export_matches_reference(bs, k_max):
+    a, _, _, _ = _problem(seed=5)
+    want = jops.dense_to_bell(a, bs=bs, k_max=k_max)
+    got = tops.dense_to_bell(a, bs=bs, k_max=k_max)
+    assert got[2] == want[2]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def test_gql_step_fused_export_matches_reference_step():
+    """``tops.gql_step_fused`` on one dense lane (the plain K3 on the CPU)
+    against ``jops.gql_step_fused`` in interpret mode, three steps from
+    one state."""
+    a, us, lmn, lmx = _problem(seed=6)
+    jop, top, _ = _ops("dense", a)
+    jst = R.gql.gql_init(jop, jnp.asarray(us[:1]), lmn, lmx)
+    tst = convert.state_from_numpy(_state_dict(jst), device="cpu")
+    for i in range(3):
+        jst = jops.gql_step_fused(jop, jst, lmn, lmx, interpret=True)
+        tst = tops.gql_step_fused(top, tst, lmn, lmx)
+        for (name, g), (_, w) in zip(_leaves(tst), _leaves(jst)):
+            g, w = g.numpy(), np.asarray(w)
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12,
+                                           err_msg=f"step {i} {name}")
+            else:
+                np.testing.assert_array_equal(g, w, f"step {i} {name}")
