@@ -10,10 +10,17 @@ It runs every phase, in order, each printing one JSON line:
   3. kernels  -- K1-K7 at the main path's shapes: each kernel against its
                  plain PyTorch version on the same inputs (tolerance and
                  reason stated), kernel / plain / library-call times and
-                 the least time the card could take (bound); K1, K2, K4,
-                 K5 and K6 timed as CUDA-graph replays (graph_ms), because
-                 a wrapper's host work can outlast its kernel, with the
-                 calls back to back beside them (wrapper_ms); K2 and K4
+                 the least time the card could take (bound); K1 on the
+                 solver's own operands (a 0-d interval read at stride 0:
+                 one device kernel a call, the same bits as the interval
+                 materialised, which a second line times), and at 4177
+                 lanes, each with the profiler's device time a launch, a
+                 CUDA-graph replay and the calls back to back, beside an
+                 empty launch read the same three ways (the floor); K2,
+                 K4, K5 and K6 timed as CUDA-graph replays (graph_ms),
+                 because a wrapper's host work can outlast its kernel,
+                 with the calls back to back beside them (wrapper_ms); K2
+                 and K4
                  on the tiled route and K5 on the wgmma route, with the
                  same bits from two launches (the sparse and trace phases
                  assert that every K2, K4 and K5 launch took it); K6 one
@@ -41,19 +48,33 @@ It runs every phase, in order, each printing one JSON line:
                  fused_matvec on 'pallas' (K6 + K1), and with Dense on the
                  same f32 matrices on 'reference'; every bracket holds its
                  dense-solve truth;
-  8. attention -- one attention layer of llama3-405b (128 query heads over
+  8. apps     -- the paper's applications on the dense phase's kernel:
+                 DPP and k-DPP chains of 128 moves from a seeded mask of
+                 about N/3 items on 'pallas' (K1 at one or two lanes a
+                 judge), 'fused' (K3), exactly (dense solves) and
+                 incrementally (a carried Cholesky factor), all with the
+                 same masks and accepts, every move certified; greedy MAP
+                 (k = 32, all 4177 items as lanes) over the kernel weighted
+                 by seeded item qualities, on 'pallas', 'fused', exactly,
+                 warm-started and incrementally, one order, every step
+                 certified, the quadrature runs through K1 / K3; double
+                 greedy over a 1024-item kernel on
+                 'pallas' and exactly, the same selection;
+  9. attention -- one attention layer of llama3-405b (128 query heads over
                  8 kv heads, head width 128, bf16): mha_flash over a 4096-
                  token causal prefill (which must take the wgmma route), a
                  decode-shaped call (one query over the 4096 keys) and an
                  f32 call over 16 heads, each against the plain version on
                  the card row by row, and the same measure on planted
                  faults, which it must catch;
-  9. coo      -- two SparseCOO matvecs on the card give identical bits;
- 10. profile  -- each path call again, warm: host seconds beside the
-                 device time of every kernel it launched (torch.profiler;
-                 CUDA events for the one-launch attention call), so the
-                 card's idle share is 1 - device / host;
- 11. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 10. coo      -- two SparseCOO matvecs on the card give identical bits;
+ 11. profile  -- each path call again (and the DPP chain and the greedy
+                 MAP call on 'pallas', with K1's share), warm: host
+                 seconds beside the device time of every kernel it
+                 launched (torch.profiler; CUDA events for the one-launch
+                 attention call), so the card's idle share is
+                 1 - device / host;
+ 12. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -85,7 +106,7 @@ except ImportError:  # no PyTorch at all: nothing to drive
     torch = None
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
-          "bilinear", "attention", "coo", "profile", "yardsticks")
+          "bilinear", "apps", "attention", "coo", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -130,6 +151,21 @@ TRACE_SCALAR = dict(max_iters=96, rtol=1e-3, decide_every=8)
 # every judge by 8, and the cap leaves room above them.
 SYSTEMS = 16
 BILINEAR = dict(max_iters=80, rtol=1e-6)
+# The paper's applications (apps phase), on the dense phase's kernel:
+# DPP and k-DPP chains of 128 moves from a seeded mask of about N/3
+# items, greedy MAP with k = 32 over all N = 4177 candidates as lanes,
+# and double greedy over a 1024-item kernel from the same builder (a depth
+# cut: Alg. 8 judges the items one at a time, and 4177 sequential judges
+# would not fit the run). The cap is far above what a judge needs, so
+# that every decision certifies (the phase asserts it).
+# Greedy MAP runs on the quality-diversity form of the kernel,
+# L = diag(q) K diag(q) with log q_i ~ N(0, QUALITY_SD^2) from the seed:
+# on K itself every diagonal is 1.05, so each round picks the first item
+# that no selected item touches, the race resolves at its first bracket
+# and no kernel runs (a CPU rehearsal at N = 2000, k = 24 on the plain
+# path: 0 K1 calls on K, 9 on L).
+CHAIN_STEPS, GREEDY_K, DG_N, QUALITY_SD = 128, 32, 1024, 0.5
+APPS = dict(max_iters=400)
 # The K7 path (attention phase): one attention layer of llama3-405b
 # (src/repro/configs/llama3_405b.py: 128 query heads over 8 kv heads,
 # head width 128, bf16 weights and activations), a 4096-token prefill.
@@ -341,10 +377,15 @@ def planted_faults(q, k, v, want) -> dict:
 
 
 def iterations_of(out) -> int:
-    """The longest lane's iterations of a solver call; 1 for a call that
-    has no iterations (an attention forward)."""
+    """The longest lane's iterations of a solver call; the total of an
+    application's judges; 1 for a call that has no iterations (an
+    attention forward)."""
     if isinstance(out, torch.Tensor):
         return 1
+    if hasattr(out, "stats"):            # a chain: its judges' iterations
+        return int(out.stats.quad_iterations)
+    if hasattr(out, "order"):            # greedy MAP: its races' iterations
+        return int(out.quad_iterations)
     its = out.state.iterations if hasattr(out, "std_error") \
         else out.iterations
     return int(its.max())
@@ -391,6 +432,7 @@ class Smoke:
         self.dense = None     # shared problem data between phases
         self.sparse = None
         self.bilinear = None
+        self.apps = None
         self.attention = None
         self.setup_s = {}     # seconds of the problems' set-up steps
         self.late_library = []  # (name, kernel, library call): timed last
@@ -509,6 +551,42 @@ class Smoke:
             self.setup_s["bilinear problem"] = time.perf_counter() - t0
         return self.bilinear
 
+    def apps_problem(self):
+        """The applications' inputs: the chains' initial mask (about N/3
+        items of the dense phase's kernel) and their draws, from a seeded
+        generator on the host (the steps read their items there); greedy
+        MAP's quality-weighted kernel diag(q) K diag(q) and its interval
+        (spec(K) scaled by the extremes of q^2, by Ostrowski's theorem);
+        the double-greedy kernel (DG_N items, the same builder), its
+        interval and its uniforms."""
+        if self.apps is None:
+            from repro_torch.core import dpp
+            from repro_torch.data import rbf_kernel
+            t0 = time.perf_counter()
+            d = self.dense_problem()
+            n = d["a"].shape[0]
+            rng = np.random.default_rng(SEED + 9)
+            init = torch.as_tensor(rng.random(n) < 1.0 / 3.0,
+                                   dtype=torch.float32, device=self.dev)
+            q = torch.as_tensor(np.exp(QUALITY_SD * rng.standard_normal(n)),
+                                device=self.dev)
+            q2 = (q.min().item() ** 2, q.max().item() ** 2)
+            gen = torch.Generator().manual_seed(SEED + 10)
+            a_dg = torch.as_tensor(rbf_kernel(DG_N, dim=4, sigma=0.5,
+                                              ridge=0.05, seed=SEED),
+                                   device=self.dev)
+            w = torch.linalg.eigvalsh(a_dg)
+            assert w[0].item() > 0, "double-greedy kernel not SPD"
+            self.apps = dict(
+                init=init, dpp_draws=dpp.dpp_draws(gen, n, CHAIN_STEPS),
+                greedy_a=q[:, None] * d["a"] * q[None, :],
+                greedy_iv=(d["lmn"] * q2[0], d["lmx"] * q2[1]),
+                kdpp_draws=dpp.kdpp_draws(gen, n, CHAIN_STEPS),
+                dg_a=a_dg, dg_iv=(0.9 * w[0].item(), 1.1 * w[-1].item()),
+                dg_u=torch.rand(DG_N, generator=gen))
+            self.setup_s["apps problem"] = time.perf_counter() - t0
+        return self.apps
+
     def attention_problem(self):
         """q (1, T, 128, 128), k and v (1, T, 8, 128) in bf16 from a
         seeded generator on the card, and the f32 call's operands: the
@@ -621,22 +699,68 @@ class Smoke:
         zero = torch.zeros((), dtype=a.dtype, device=self.dev)
         n = a.shape[0]
 
-        # K1 on the recurrence inputs of the next step
-        k1_in = (g.lz.alpha, g.lz.beta, g.lz.beta_prev, g.g, g.c, g.delta,
-                 g.delta_lr, g.delta_rr, lmn, lmx)
-        got = ops.gql_update(*k1_in)
-        want = gu.gql_update_plain(*k1_in)
-        nb = nbytes(*k1_in) + nbytes(*got)
-        bms, bby = bound(nb, 55 * K, torch.float64)
-        def k1():
-            return ops.gql_update(*k1_in)
+        # K1 at 64 lanes twice: on materialised operands (the lanes of the
+        # state above with the interval as (64,) vectors, as K1's line read
+        # them before it took the solver's), and on the solver's own
+        # operands (recorded at the third step of a 'pallas' solve; the
+        # interval 0-d, read at stride 0), whose line it is; then on the
+        # solver's operands at 4177 lanes.
+        # A kernel of 2 us is timed three ways, beside the same readings of
+        # an empty launch (the floor): the profiler's device time a launch,
+        # a CUDA-graph replay, and calls back to back
+        floor = {"per_launch_ms": per_launch_ms(gu.empty_launch, reps=20)[
+                     "empty_kernel"],
+                 "graph_ms": graph_ms(gu.empty_launch),
+                 "wrapper_ms": cuda_ms(gu.empty_launch)}
+        solver_in = self.k1_operands(d["u"])
+        assert solver_in[8].ndim == 0 and solver_in[9].ndim == 0
+        gen = torch.Generator(device=self.dev).manual_seed(SEED + 11)
+        wide_in = self.k1_operands(torch.randn(
+            (n, n), generator=gen, dtype=a.dtype, device=self.dev))
+        for what, k1_in in (
+                ("materialised", (g.lz.alpha, g.lz.beta, g.lz.beta_prev,
+                                  g.g, g.c, g.delta, g.delta_lr,
+                                  g.delta_rr, lmn, lmx)),
+                ("solver", solver_in), (f"solver, {n} lanes", wide_in)):
+            got = ops.gql_update(*k1_in)
+            want = gu.gql_update_plain(*k1_in)
+            lanes = got[0].numel()
+            nb = nbytes(*k1_in) + nbytes(*got)
+            bms, bby = bound(nb, 55 * lanes, torch.float64)
 
-        self._kernel_line(
-            "gql_update", "src/repro_torch/kernels/csrc/gql_update.cu",
-            "src/repro/kernels/gql_update.py:76", got, want, 1e-12,
-            "f64; FMA contraction and operation order only", graph_ms(k1),
-            cuda_ms(lambda: gu.gql_update_plain(*k1_in)), bms, bby, None,
-            k1, extra={"wrapper_ms": cuda_ms(k1)})
+            def k1():
+                return ops.gql_update(*k1_in)
+
+            launch = per_launch_ms(k1, reps=20)
+            ms = launch["gql_update_kernel"]
+            line = dict(operands=what, lanes=lanes, per_launch_ms=launch,
+                        graph_ms=graph_ms(k1), wrapper_ms=cuda_ms(k1),
+                        empty_launch=floor)
+            if what == "solver":
+                self._kernel_line(
+                    "gql_update", "src/repro_torch/kernels/csrc/gql_update.cu",
+                    "src/repro/kernels/gql_update.py:76", got, want, 1e-12,
+                    "f64; FMA contraction and operation order only", ms,
+                    cuda_ms(lambda: gu.gql_update_plain(*k1_in)), bms, bby,
+                    None, k1, extra=line)
+                assert self.kernels_per_call["gql_update"] == 1, \
+                    "K1 on the solver's operands is not one kernel a call"
+                # the 0-d interval and its materialised copy: the same bits
+                full = k1_in[:8] + tuple(x.expand(lanes).contiguous()
+                                         for x in k1_in[8:])
+                assert all(torch.equal(x, y) for x, y in zip(
+                    got, ops.gql_update(*full))), \
+                    "K1: the 0-d interval and its materialised copy differ"
+            else:
+                abs_err, rel_err = errors(got, want)
+                emit({"phase": "kernels", "name": f"gql_update[{what}]",
+                      "max_abs_err": abs_err, "max_rel_err": rel_err,
+                      "tolerance": 1e-12, "kernel_ms": ms, "bound_ms": bms,
+                      "cuda_kernels_per_call": sum(
+                          c for _, c in device_kernels(k1).values()),
+                      **line})
+                assert rel_err <= 1e-12, f"K1 {what}: rel err {rel_err}"
+        del wide_in
 
         # K3 with the banked basis (the fused solve_batch path), at step 3
         # with all M = 161 rows read (no live-row count: PR 13's line)
@@ -880,6 +1004,28 @@ class Smoke:
                    "tflops": flops / k7_ms / 1e9})
         emit({"phase": "kernels", "ported": sorted(self.kernels)})
         assert sorted(self.kernels) == sorted(KERNELS)
+
+    def k1_operands(self, u):
+        """The operands the 'pallas' solver passes K1 at the third step of
+        a solve of the dense problem over the lanes ``u`` (recorded at
+        ``ops.gql_update``): the lanes (B,), the interval 0-d. The solver
+        is capped just past that step: the first steps, and so the
+        operands, are the same as under the dense phase's cap (bit-equal
+        on the CPU), and no state is sized for the 160 steps it never
+        takes."""
+        from repro_torch.core import BIFSolver
+        from repro_torch.kernels import ops
+        d = self.dense_problem()
+        seen, launch = [], ops.gql_update
+        ops.gql_update = lambda *args: seen.append(args) or launch(*args)
+        try:
+            s = BIFSolver.create(max_iters=4, rtol=DENSE["rtol"],
+                                 backend="pallas")
+            s.step_n(s.init_state(self.rt.Dense(d["a"]), u, lam_min=d["lmn"],
+                                  lam_max=d["lmx"]), 3)
+        finally:
+            ops.gql_update = launch
+        return seen[-1]
 
     def k3_mid_solve(self, d, a, one, zero, lmn, lmx):
         """K3 as the fused solve calls it mid-solve: the state after 56
@@ -1361,6 +1507,126 @@ class Smoke:
         assert launches["gql_update"] > 0
         self._count(launches)
 
+    def phase_apps(self):
+        """The paper's applications through their entry points: each run
+        on 'pallas' (K1, one or two lanes a judge; 4177 lanes a greedy
+        round), on 'fused' (K3), and against the exact scorers (dense
+        solves), and the chains also incrementally (the Cholesky factor of
+        L_Y carried across moves). Every way must make the same decisions,
+        and certify every one."""
+        from repro_torch.core import BIFSolver, Dense, dpp, greedy_map, \
+            run_double_greedy, update
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        ap, d = self.apps_problem(), self.dense_problem()
+        op = Dense(d["a"])
+        iv = (d["lmn"], d["lmx"])
+        init = ap["init"]
+        count = int(init.sum())
+        seconds, line = {}, {"phase": "apps", "n": op.n,
+                             "initial_items": count}
+
+        def timed(what, fn):
+            before = dict(LAUNCHES)
+            out, seconds[what] = self.run_timed(fn)
+            return out, {k: LAUNCHES[k] - before[k] for k in
+                         ("gql_update", "fused_step_dense")}
+
+        def cfg(backend):
+            return dict(max_iters=APPS["max_iters"],
+                        solver=BIFSolver.create(**APPS, backend=backend))
+
+        reset_launches()
+        for kind, step, draws, cap in (
+                ("dpp", dpp.dpp_step, ap["dpp_draws"], count + CHAIN_STEPS),
+                ("kdpp", dpp.kdpp_step, ap["kdpp_draws"], count)):
+            factor, _ = timed(f"{kind} from_mask", lambda: update.from_mask(
+                op, init, capacity=cap))
+            runs = {}
+            for how, kw in (("pallas", cfg("pallas")),
+                            ("fused", cfg("fused")),
+                            ("exact", dict(max_iters=APPS["max_iters"],
+                                           exact=True)),
+                            ("incremental", dict(
+                                max_iters=APPS["max_iters"],
+                                factor=factor))):
+                st, launched = timed(f"{kind} {how}", lambda: dpp.run_chain(
+                    step, op, draws, init, CHAIN_STEPS, *iv, **kw))
+                runs[how] = st
+                line[f"{kind}_{how}"] = {
+                    "accepts": int(st.stats.accepts),
+                    "items": int(st.mask.sum()),
+                    "quad_iterations": int(st.stats.quad_iterations),
+                    "uncertified": int(st.stats.uncertified),
+                    "launches": launched}
+            ref = runs["exact"]
+            for how, st in runs.items():
+                assert torch.equal(st.mask, ref.mask), \
+                    f"{kind} {how}: the chain's mask differs from exact"
+                assert int(st.stats.accepts) == int(ref.stats.accepts)
+                assert int(st.stats.uncertified) == 0, f"{kind} {how}"
+            f = runs["incremental"].factor
+            assert sorted(f.idx[:int(f.count)].tolist()) == torch.nonzero(
+                ref.mask > 0.5).flatten().tolist()
+            if kind == "kdpp":
+                assert int(ref.mask.sum()) == count, "k-DPP lost its k"
+
+        greedy, g_op = {}, Dense(ap["greedy_a"])
+        for how, kw in (("pallas", cfg("pallas")), ("fused", cfg("fused")),
+                        ("exact", dict(max_iters=APPS["max_iters"],
+                                       exact=True)),
+                        ("warm_start", dict(cfg("pallas"), warm_start=True)),
+                        ("incremental", dict(cfg("pallas"),
+                                             incremental=True))):
+            res, launched = timed(f"greedy_map {how}", lambda: greedy_map(
+                g_op, GREEDY_K, *ap["greedy_iv"], **kw))
+            greedy[how] = res
+            line[f"greedy_map_{how}"] = {
+                "certified": int(res.certified.sum()),
+                "quad_iterations": int(res.quad_iterations),
+                "max_rel_gain_diff_vs_exact": None, "launches": launched}
+        ex = greedy["exact"]
+        for how, res in greedy.items():
+            assert torch.equal(res.order, ex.order), \
+                f"greedy_map {how}: the order differs from exact"
+            assert bool(res.certified.all()), f"greedy_map {how}"
+            line[f"greedy_map_{how}"]["max_rel_gain_diff_vs_exact"] = float(
+                ((res.gains - ex.gains).abs() / ex.gains.abs()).max())
+        assert int(greedy["incremental"].quad_iterations) <= \
+            int(greedy["warm_start"].quad_iterations)
+        # rounds decided by quadrature: each race past its first bracket
+        # ran its kernel (the incremental race starts from exact scores)
+        for how, kernel in (("pallas", "gql_update"),
+                            ("warm_start", "gql_update"),
+                            ("fused", "fused_step_dense")):
+            assert line[f"greedy_map_{how}"]["launches"][kernel] > 0, \
+                f"greedy_map {how} never launched {kernel}"
+        line["greedy_map_order"] = ex.order.tolist()
+
+        dg_op = Dense(ap["dg_a"])
+        dg = {}
+        for how, kw in (("pallas", cfg("pallas")),
+                        ("exact", dict(max_iters=APPS["max_iters"],
+                                       exact=True))):
+            res, launched = timed(f"double_greedy {how}",
+                                  lambda: run_double_greedy(
+                                      dg_op, ap["dg_u"], *ap["dg_iv"], **kw))
+            dg[how] = res
+            line[f"double_greedy_{how}"] = {
+                "selected": int(res.selected.sum()),
+                "quad_iterations": int(res.quad_iterations),
+                "uncertified": int(res.uncertified),
+                "log_det": float(res.log_det), "launches": launched}
+        assert torch.equal(dg["pallas"].selected, dg["exact"].selected), \
+            "double greedy: the selections differ"
+        assert int(dg["pallas"].uncertified) == 0
+
+        launches = dict(LAUNCHES)
+        line.update(double_greedy_n=DG_N, seconds=seconds, launches=launches)
+        emit(line)
+        assert launches["gql_update"] > 0, "the apps never launched K1"
+        assert launches["fused_step_dense"] > 0, "the apps never launched K3"
+        self._count(launches)
+
     def phase_attention(self):
         """The K7 path: mha_flash over one llama3-405b attention layer,
         a 4096-token causal prefill in bf16, then a decode-shaped call (the
@@ -1485,6 +1751,16 @@ class Smoke:
             bp["op"], bp["u"], lam_min=bp["lmn"], lam_max=bp["lmx"])
         calls["attention mha_flash prefill"] = lambda: ops.mha_flash(
             ap["q"], ap["k"], ap["v"], causal=True)
+        from repro_torch.core import dpp, greedy_map
+        xp = self.apps_problem()
+        k1 = BIFSolver.create(**APPS, backend="pallas")
+        calls["apps dpp chain pallas"] = lambda: dpp.run_chain(
+            dpp.dpp_step, Dense(d["a"]), xp["dpp_draws"], xp["init"],
+            CHAIN_STEPS, d["lmn"], d["lmx"], max_iters=APPS["max_iters"],
+            solver=k1)
+        calls["apps greedy_map pallas"] = lambda: greedy_map(
+            Dense(xp["greedy_a"]), GREEDY_K, *xp["greedy_iv"],
+            max_iters=APPS["max_iters"], solver=k1)
         for what, fn in calls.items():
             if not what.startswith("trace"):   # the trace phase warmed these
                 fn()
@@ -1506,7 +1782,10 @@ class Smoke:
                                        f"no kernel of {what}")
             prof_s = time.perf_counter() - t0
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+            k1_ms = kernels.get("gql_update_kernel", 0.0)
             emit({"phase": "profile", "call": what,
+                  "k1_share_of_device": k1_ms / 1e3 / dev_s if dev_s else
+                  None,
                   "iterations_max": iterations_of(res),
                   "host_s": host_s, "device_s": dev_s,
                   "device_s_from": dev_from,

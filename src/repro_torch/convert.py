@@ -3,7 +3,7 @@
 ``operator_from_numpy`` and ``state_from_numpy`` take numpy arrays and
 Python metadata (the leaves of an operator or of a
 ``GQLState``/``LanczosState``/``CoeffHistory``/``BlockState``/
-``QuadState``) and return the port's
+``QuadState``/``ChainFactor``/``ChainState``) and return the port's
 operator or state on ``device``. Whoever holds another package's arrays
 converts them to numpy first, so this module never sees them; it is what
 lets a parity test start two implementations from identical states.
@@ -16,11 +16,13 @@ import numpy as np
 import torch
 
 from .core import block as _block
+from .core import dpp as _dpp
 from .core import gql as _gql
 from .core import lanczos as _lz
 from .core import matfun as _matfun
 from .core import operators as _ops
 from .core import solver as _solver
+from .core import update as _update
 
 _KINDS = ("dense", "coo", "bell", "masked", "shifted", "jacobi")
 
@@ -109,5 +111,22 @@ def state_from_numpy(fields: dict, *, device="cuda"):
             lam_max=_t(fields["lam_max"], dev),
             basis=_t(fields["basis"], dev), step=_t(fields["step"], dev),
             coeffs=None if coeffs is None else sub(coeffs))
+    if keys == _fields(_update.ChainFactor):
+        return _update.ChainFactor(
+            n=int(fields["n"]), **{k: _t(fields[k], dev)
+                                   for k in ("idx", "chol", "count", "ok")})
+    if {"mask", "stats"} <= keys <= {"mask", "stats", "factor", "key"}:
+        # the reference's key is dropped: the port's steps take their
+        # draws as an argument
+        stats = fields["stats"]
+        if isinstance(stats, dict):
+            stats = [stats[k] for k in _dpp.ChainStats._fields]
+        factor = fields.get("factor")
+        return _dpp.ChainState(
+            mask=_t(fields["mask"], dev).to(torch.float32),
+            stats=_dpp.ChainStats(*(_t(x, dev).to(torch.int32)
+                                    for x in stats)),
+            factor=None if factor is None else sub(factor))
     raise ValueError(f"fields {sorted(keys)} match no LanczosState, "
-                     f"GQLState, CoeffHistory, BlockState or QuadState")
+                     f"GQLState, CoeffHistory, BlockState, QuadState, "
+                     f"ChainFactor or ChainState")

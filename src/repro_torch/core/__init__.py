@@ -16,11 +16,15 @@ TraceQuadResult, TraceQuadState}, operators.{Dense, SparseCOO,
 SparseBELL, Masked, Shifted, Jacobi, MatvecFn, stack_ops, stack_masks,
 bell_from_dense, sparse_from_dense, matvec_mrhs}, gql.{gql_init,
 gql_step, GQLState}, spectrum.{lanczos_extremal, gershgorin_bounds,
-ridge_bounds}, loop_utils.tree_freeze and bounds.{bif_bounds_trace,
-BIFTrace, BIFBounds}.
+ridge_bounds}, loop_utils.tree_freeze, bounds.{bif_bounds_trace,
+BIFTrace, BIFBounds}, the applications dpp.{ChainState,
+GreedyMapResult, LogLikelihoodResult, greedy_map, log_likelihood,
+sample_dpp, sample_kdpp}, update.ChainFactor and
+double_greedy.{DGResult, double_greedy as run_double_greedy}.
 """
-from . import block, bounds, gql, lanczos, loop_utils, matfun, \
-    operators, solver, spectrum, trace  # noqa: F401
+from . import block, bounds, double_greedy, dpp, gql, lanczos, \
+    loop_utils, matfun, operators, solver, spectrum, trace, \
+    update  # noqa: F401
 
 from .solver import ArgmaxResult, BIFSolver, JudgeResult, PairState, \
     QuadratureTrace, QuadState, SolveResult, SolverConfig  # noqa: F401
@@ -35,3 +39,8 @@ from .operators import Dense, Jacobi, Masked, MatvecFn, Shifted, \
 from .spectrum import SpectrumBounds, gershgorin_bounds, \
     lanczos_extremal, ridge_bounds  # noqa: F401
 from .bounds import BIFBounds, BIFTrace, bif_bounds_trace  # noqa: F401
+from .dpp import ChainState, GreedyMapResult, LogLikelihoodResult, \
+    greedy_map, log_likelihood, sample_dpp, sample_kdpp  # noqa: F401
+from .update import ChainFactor  # noqa: F401
+from .double_greedy import DGResult, \
+    double_greedy as run_double_greedy  # noqa: F401

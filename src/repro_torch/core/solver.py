@@ -324,12 +324,16 @@ class BIFSolver:
             shape = g.shape
 
             def flat(x):
+                # lanes as a flat view; a 0-d value (the interval) goes
+                # as it is, and K1 reads it at stride 0
                 x = torch.as_tensor(x, dtype=g.dtype, device=g.device)
+                if x.ndim == 0:
+                    return x
                 return torch.broadcast_to(x, shape).reshape(-1)
 
             outs = _kops.gql_update(
-                flat(alpha_n), flat(beta_n), flat(beta_p), flat(g), flat(c),
-                flat(delta), flat(d_lr), flat(d_rr), flat(lam_min),
+                flat(alpha_n), flat(beta_n), flat(beta_p), g.reshape(-1),
+                flat(c), flat(delta), flat(d_lr), flat(d_rr), flat(lam_min),
                 flat(lam_max))
             return tuple(o.reshape(shape) for o in outs)
 

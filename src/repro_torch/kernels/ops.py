@@ -47,7 +47,10 @@ def _on_cuda(x: torch.Tensor, what: str) -> bool:
 
 def gql_update(alpha_n, beta_n, beta_p, g, c, delta, d_lr, d_rr,
                lam_min, lam_max):
-    """K1: batched Alg. 5 recurrence update over flat (B,) lanes."""
+    """K1: batched Alg. 5 recurrence update over flat (B,) lanes ``g``;
+    every other operand is (B,) at any lane stride or a broadcast 0-d /
+    (1,) value, read in place (``gql_update.lane_operands``). CUDA lanes
+    launch on their own device, as the other entry points do."""
     args = (alpha_n, beta_n, beta_p, g, c, delta, d_lr, d_rr, lam_min,
             lam_max)
     if not _on_cuda(g, "gql_update"):

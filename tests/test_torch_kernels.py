@@ -97,6 +97,53 @@ def test_k1_scalar_interval_broadcasts():
     _close(got, want, what="gql_update scalar interval")
 
 
+@pytest.mark.parametrize("form", ["0-d", "(1,)", "stride-0", "strided"])
+def test_k1_operands_are_read_in_place(form):
+    """K1 reads each operand as a pointer and a lane stride: a 0-d or
+    (1,) value and a stride-0 expand are read at stride 0, a strided view
+    at its stride; nothing is copied, and the results equal those of the
+    materialised operands, bit for bit."""
+    b = 9
+    ins = [_t(x) for x in _recurrence_inputs(b, seed=5)]
+    ins[8], ins[9] = torch.full((b,), 0.05, dtype=torch.float64), \
+        torch.full((b,), 4.0, dtype=torch.float64)
+    want = tgu.gql_update_plain(*ins)
+    if form == "strided":
+        buf = [torch.stack([x, -x], 1) for x in ins]
+        args = [x[:, 0] for x in buf]
+        assert all(x.stride(0) == 2 for x in args)
+    else:
+        scalar = {"0-d": lambda v: torch.tensor(v, dtype=torch.float64),
+                  "(1,)": lambda v: torch.tensor([v], dtype=torch.float64),
+                  "stride-0": lambda v: torch.tensor(
+                      v, dtype=torch.float64).expand(b)}[form]
+        args = ins[:8] + [scalar(0.05), scalar(4.0)]
+    b_read, operands = tgu.lane_operands(args)
+    assert b_read == b
+    for (x, stride), arg in zip(operands, args):
+        assert x is arg
+        if form == "strided":
+            assert stride == 2
+    assert [s for _, s in operands[8:]] == ([2, 2] if form == "strided"
+                                            else [0, 0])
+    for got in (tgu.gql_update_plain(*args), ops.gql_update(*args)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_k1_operand_errors():
+    ins = [_t(x) for x in _recurrence_inputs(6, seed=2)]
+    with pytest.raises(ValueError, match="flat"):      # g sets the lanes
+        ops.gql_update(*ins[:3], ins[3][None], *ins[4:])
+    with pytest.raises(ValueError, match="shape"):     # another lane count
+        ops.gql_update(ins[0][:5], *ins[1:])
+    with pytest.raises(ValueError, match="float32"):   # another dtype
+        ops.gql_update(ins[0].float(), *ins[1:])
+    with pytest.raises(ValueError, match="meta"):      # another device
+        ops.gql_update(*ins[:9], torch.zeros(6, dtype=torch.float64,
+                                              device="meta"))
+
+
 @pytest.mark.parametrize("n,bs,lanes", [(64, 8, 1), (100, 8, 3),
                                         (37, 8, 2)])
 def test_k2_bell_matvec_plain_matches_pallas(n, bs, lanes):
