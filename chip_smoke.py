@@ -60,21 +60,36 @@ It runs every phase, in order, each printing one JSON line:
                  certified, the quadrature runs through K1 / K3; double
                  greedy over a 1024-item kernel on
                  'pallas' and exactly, the same selection;
-  9. attention -- one attention layer of llama3-405b (128 query heads over
+  9. serve    -- the serving path, BIFEngine (continuous batching, 64
+                 lanes, chunks of 8 iterations) over 256 requests (3/4
+                 judges, 1/4 brackets, 1/8 masked, 8 budget partials
+                 resubmitted, 4 expired at the door): serve-dense on the
+                 dense operator continuous on 'pallas' (K1), 'fused' (K3)
+                 and 'reference', lockstep on 'fused'; serve-sparse on the
+                 blocked-ELL operator on 'pallas' (K2 + K1), 'fused' (K4)
+                 and 'reference'; serve-kv, rank_blocks over one
+                 llama3-405b KV head's 32768 keys (256 blocks; K1 f32 on
+                 'pallas', K3's f32 route on 'fused') and a BlockRanker
+                 grown by 8 blocks; the obs smoke on the card. Equal
+                 decisions and flags on every backend and mode, brackets
+                 holding their truths, partials resuming bit-exactly,
+                 results bit-identical with telemetry on and off;
+ 10. attention -- one attention layer of llama3-405b (128 query heads over
                  8 kv heads, head width 128, bf16): mha_flash over a 4096-
                  token causal prefill (which must take the wgmma route), a
                  decode-shaped call (one query over the 4096 keys) and an
                  f32 call over 16 heads, each against the plain version on
                  the card row by row, and the same measure on planted
                  faults, which it must catch;
- 10. coo      -- two SparseCOO matvecs on the card give identical bits;
- 11. profile  -- each path call again (and the DPP chain and the greedy
-                 MAP call on 'pallas', with K1's share), warm: host
+ 11. coo      -- two SparseCOO matvecs on the card give identical bits;
+ 12. profile  -- each path call again (and the DPP chain and the greedy
+                 MAP call on 'pallas', with K1's share, and the serve-dense
+                 flushes on 'pallas' and 'fused'), warm: host
                  seconds beside the device time of every kernel it
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 12. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 13. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -106,7 +121,8 @@ except ImportError:  # no PyTorch at all: nothing to drive
     torch = None
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
-          "bilinear", "apps", "attention", "coo", "profile", "yardsticks")
+          "bilinear", "apps", "serve", "attention", "coo", "profile",
+          "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -166,6 +182,29 @@ BILINEAR = dict(max_iters=80, rtol=1e-6)
 # path: 0 K1 calls on K, 9 on L).
 CHAIN_STEPS, GREEDY_K, DG_N, QUALITY_SD = 128, 32, 1024, 0.5
 APPS = dict(max_iters=400)
+# The serving path (serve phase): BIFEngine over the dense and sparse
+# phases' operators, with their intervals, SERVE_REQUESTS requests through
+# a SERVE_POOL-lane pool in chunks of SERVE_CHUNK iterations: 3/4 threshold
+# judges 3-8x off their dense-solve truth, 1/4 brackets to the cell's
+# rtol (benchmarks/engine_throughput.py's mix); every 8th over a seeded
+# principal-submatrix mask of about N/3 items; SERVE_PARTIAL unmasked
+# brackets with a budget of SERVE_BUDGET iterations, resubmitted with the
+# full budget; on the dense cell SERVE_EXPIRED judges whose deadline has
+# passed.
+SERVE_REQUESTS, SERVE_POOL, SERVE_CHUNK = 256, 64, 8
+SERVE_PARTIAL, SERVE_BUDGET, SERVE_EXPIRED = 8, 4, 4
+SERVE_DENSE = dict(max_iters=160, rtol=1e-6)
+SERVE_SPARSE = dict(max_iters=384, rtol=1e-3)
+# serve-kv: rank_blocks over the keys of one llama3-405b KV head (head
+# width 128, src/repro/configs/llama3_405b.py): a 32768-token context of
+# 64 segments of 512 tokens, each token its segment's seeded centre plus
+# N(0, KV_NOISE^2) noise per coordinate; 256 blocks of 128 (n_pad = 256).
+# Then a BlockRanker over the same keys, extended by KV_MORE keys (8
+# blocks) and ranked again. The f32 slack: a CPU rehearsal of this cell on
+# the plain path missed its f64 truths by at most 3.9e-7 relative.
+KV_TOKENS, KV_DIM, KV_CLUSTERS, KV_BLOCK, KV_MORE = 32768, 128, 64, 128, 1024
+KV_NOISE, KV_COARSE, KV_SLACK = 4.0, 8, 1e-5
+KV = dict(max_iters=64, rtol=1e-3)
 # The K7 path (attention phase): one attention layer of llama3-405b
 # (src/repro/configs/llama3_405b.py: 128 query heads over 8 kv heads,
 # head width 128, bf16 weights and activations), a 4096-token prefill.
@@ -382,6 +421,8 @@ def iterations_of(out) -> int:
     attention forward)."""
     if isinstance(out, torch.Tensor):
         return 1
+    if isinstance(out, list):            # a flush: its longest request's
+        return max(r.iterations for r in out)
     if hasattr(out, "stats"):            # a chain: its judges' iterations
         return int(out.stats.quad_iterations)
     if hasattr(out, "order"):            # greedy MAP: its races' iterations
@@ -433,6 +474,8 @@ class Smoke:
         self.sparse = None
         self.bilinear = None
         self.apps = None
+        self.serve = {}       # cell -> its requests and their truths
+        self.kv = None
         self.attention = None
         self.setup_s = {}     # seconds of the problems' set-up steps
         self.late_library = []  # (name, kernel, library call): timed last
@@ -1627,6 +1670,388 @@ class Smoke:
         assert launches["fused_step_dense"] > 0, "the apps never launched K3"
         self._count(launches)
 
+    # -- the serving path ---------------------------------------------------
+
+    def serve_problem(self, cell):
+        """The requests of ``cell`` ('dense' or 'sparse'; dicts of
+        BIFRequest fields, host numpy) with their truths u^T A^-1 u from
+        dense f64 solves on the card, over A_Y where masked; the indices
+        of the budget partials and of the expired requests; the operator
+        and its interval (the dense phase's, and the blocked-ELL table
+        with its diagonal in f64, so that the pool is f64)."""
+        if cell not in self.serve:
+            t0 = time.perf_counter()
+            if cell == "dense":
+                d = self.dense_problem()
+                a, op = d["a"], self.rt.Dense(d["a"])
+                iv, seed, expired = (d["lmn"], d["lmx"]), SEED + 11, \
+                    SERVE_EXPIRED
+            else:
+                sp = self.trace_problem()
+                a, op = sp["a32"], sp["trace_op"]
+                iv, seed, expired = (sp["lmn"], sp["lmx"]), SEED + 12, 0
+            n, count = a.shape[0], SERVE_REQUESTS
+            rng = np.random.default_rng(seed)
+            us = rng.standard_normal((count, n))
+            u = torch.as_tensor(us, device=self.dev)
+            truth = torch.sum(u * torch.linalg.solve(a, u.T).T, dim=-1)
+            reqs = [dict(u=us[i]) for i in range(count)]
+            for i in range(7, count, 8):
+                keep = rng.random(n) < 1.0 / 3.0
+                y = torch.as_tensor(np.nonzero(keep)[0], device=self.dev)
+                uy = u[i, y]
+                truth[i] = uy @ torch.linalg.solve(a[y][:, y], uy)
+                reqs[i]["mask"] = keep.astype(np.float64)
+            truth_h = truth.cpu().numpy()
+            for i in range(count):
+                if i % 4:
+                    f = rng.uniform(3.0, 8.0)
+                    reqs[i]["t"] = float(truth_h[i] * (f if i % 2 else
+                                                       1.0 / f))
+            partial = [i for i in range(0, count, 4)
+                       if "mask" not in reqs[i]][:SERVE_PARTIAL]
+            for i in partial:
+                reqs[i]["max_iters"] = SERVE_BUDGET
+            late = [i for i in range(count - 1, -1, -1)
+                    if i % 4 and "mask" not in reqs[i]][:expired]
+            for i in late:
+                reqs[i]["deadline"] = 0.0     # long past at admission
+            self.serve[cell] = dict(op=op, iv=iv, reqs=reqs, truth=truth_h,
+                                    partial=partial, expired=late,
+                                    n=n)
+            self.setup_s[f"serve {cell} problem"] = time.perf_counter() - t0
+        return self.serve[cell]
+
+    def kv_problem(self):
+        """The serve-kv keys (host f32), the 8 blocks of keys that grow
+        the cache, and each block's leverage against the others,
+        K_ii - 1 / (K^-1)_ii, in f64 from the f32 kernel the rankers
+        solve."""
+        if self.kv is None:
+            from repro_torch.serve.kv_select import _rbf_kernel, pool_keys
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(SEED + 13)
+            centres = rng.standard_normal((KV_CLUSTERS, KV_DIM))
+            seg = np.repeat(np.arange(KV_CLUSTERS), KV_TOKENS // KV_CLUSTERS)
+            keys = (centres[seg] + KV_NOISE * rng.standard_normal(
+                (KV_TOKENS, KV_DIM))).astype(np.float32)
+            more = (centres[rng.integers(0, KV_CLUSTERS, KV_MORE //
+                                         KV_BLOCK)].repeat(KV_BLOCK, 0)
+                    + KV_NOISE * rng.standard_normal((KV_MORE, KV_DIM))
+                    ).astype(np.float32)
+            k = _rbf_kernel(pool_keys(keys, KV_BLOCK), 1e-3, 0.5)
+            k = torch.as_tensor(k.astype(np.float32).astype(np.float64),
+                                device=self.dev)
+            truth = torch.diagonal(k) - 1.0 / torch.diagonal(
+                torch.linalg.inv(k))
+            self.kv = dict(keys=keys, more=more, truth=truth.cpu().numpy())
+            self.setup_s["serve kv problem"] = time.perf_counter() - t0
+        return self.kv
+
+    def serve_run(self, cell, backend, mode="continuous", *, metrics=True,
+                  log=None, budgets=True):
+        """One engine over ``cell``'s requests (without the partials'
+        budgets when ``budgets`` is False): submit them all, flush, then
+        resubmit the budget partials with the full budget and flush again
+        (continuous mode); returns the engine, the requests, the flushed
+        list, the wall seconds of both flushes (submission included) and
+        the launches and routes of the run."""
+        from repro_torch.core import BIFSolver
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.kernels import lanczos_step as ls
+        from repro_torch.kernels import spmv_bell as sb
+        from repro_torch.serve import BIFEngine, BIFRequest
+        sv = self.serve_problem(cell)
+        cfg = SERVE_DENSE if cell == "dense" else SERVE_SPARSE
+        eng = BIFEngine(sv["op"], solver=BIFSolver.create(
+            **cfg, backend=backend), max_batch=SERVE_POOL,
+            chunk_iters=SERVE_CHUNK, lam_min=sv["iv"][0],
+            lam_max=sv["iv"][1], metrics=metrics, convergence_log=log)
+        picked = sv["reqs"] if budgets else \
+            [{k: v for k, v in r.items() if k != "max_iters"}
+             for r in sv["reqs"]]
+        before = (dict(LAUNCHES), dict(ls.ROUTES), dict(sb.ROUTES))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(BIFRequest(**r)) for r in picked]
+        out = eng.flush(mode=mode)
+        if mode == "continuous" and budgets:
+            for i in sv["partial"]:
+                reqs[i].max_iters = None
+                eng.submit(reqs[i])
+            eng.flush(mode=mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        diff = [{k: now[k] - was[k] for k in now} for now, was in
+                zip((LAUNCHES, ls.ROUTES, sb.ROUTES), before)]
+        return eng, reqs, out, seconds, diff
+
+    def serve_line(self, cell, backend, mode, run):
+        """The run's line: requests, pool rounds, wall seconds, requests/s,
+        latency and queue-wait percentiles (engine.stats()), iterations,
+        launches by kernel and route."""
+        eng, reqs, _, seconds, (launches, k34, k2) = run
+        st = eng.stats()
+        c, h = st["counters"], st["histograms"]
+        its = np.array([r.iterations for r in reqs], float)
+
+        def pct(name, q):
+            return h[name][f"p{q}"] if name in h else None
+
+        line = {"phase": "serve", "cell": cell, "backend": backend,
+                "mode": mode, "requests": len(reqs),
+                "submitted": c.get("requests.submitted"),
+                "rounds": c.get("flush.rounds"), "seconds": seconds,
+                "requests_per_s": len(reqs) / seconds,
+                "latency_p50_s": pct("request.latency_s", 50),
+                "latency_p99_s": pct("request.latency_s", 99),
+                "queue_wait_p50_s": pct("request.queue_wait_s", 50),
+                "queue_wait_p99_s": pct("request.queue_wait_s", 99),
+                "iterations_mean": float(its.mean()),
+                "iterations_p95": float(np.percentile(
+                    its, 95, method="inverted_cdf")),
+                "iterations_max": int(its.max()),
+                "counters": c,
+                "launches": {k: v for k, v in launches.items() if v},
+                "k3_k4_routes": {k: v for k, v in k34.items() if v},
+                "k2_routes": {k: v for k, v in k2.items() if v}}
+        emit(line)
+        return line
+
+    def serve_compare(self, what, reqs, ref, cell, slack, lockstep=False):
+        """Hold a run's requests against the reference backend's: equal
+        decisions, resolved and certified flags, iterations within 1, and
+        every resolved bracket around its truth (``slack`` relative). A
+        lockstep flush ignores deadlines, so the expired requests are left
+        out of its comparison; a continuous one must retire them at zero
+        iterations."""
+        sv = self.serve_problem(cell)
+        skip = set(sv["expired"]) if lockstep else set()
+        misses, worst = 0, -np.inf
+        for i, (g, w) in enumerate(zip(reqs, ref)):
+            if i in skip:
+                continue
+            assert g.decision == w.decision, f"{what} {i}: decision"
+            assert (g.resolved, g.certified) == (w.resolved, w.certified), \
+                f"{what} {i}: flags"
+            assert abs(g.iterations - w.iterations) <= 1, \
+                f"{what} {i}: iterations {g.iterations} vs {w.iterations}"
+            if g.resolved:
+                t = sv["truth"][i]
+                miss = max(g.lower - t, t - g.upper) / abs(t)
+                worst = max(worst, miss)
+                misses += miss > slack
+        assert misses == 0, f"{what}: {misses} brackets miss their truth"
+        if not lockstep:
+            for i in sv["expired"]:
+                assert reqs[i].iterations == 0 and reqs[i].state is None \
+                    and reqs[i].resolved is False, f"{what} {i}: expired"
+        return {"max_rel_miss": worst, "slack": slack}
+
+    def serve_partials(self, cell, backend, reqs):
+        """The budget partials, resumed, against an uninterrupted run of
+        the same traffic without their budgets on the same backend: the
+        same bits. Each partial resumes in the slot it was banked from
+        (BIFEngine._place), where the uninterrupted run solves it
+        throughout: on the card a lane's bits depend on its slot."""
+        sv = self.serve_problem(cell)
+        _, whole, _, _, _ = self.serve_run(cell, backend, budgets=False)
+        for i in sv["partial"]:
+            g, w = reqs[i], whole[i]
+            assert g.resolved and g.state is None, f"partial {i} unresolved"
+            assert (g.lower, g.upper, g.iterations) == \
+                (w.lower, w.upper, w.iterations), \
+                f"{cell} {backend}: partial {i} did not resume bit-exactly"
+        return len(sv["partial"])
+
+    def serve_counters(self, eng, cell):
+        """engine.stats() counters against the traffic (continuous)."""
+        sv = self.serve_problem(cell)
+        r, p, e = SERVE_REQUESTS, len(sv["partial"]), len(sv["expired"])
+        c = eng.stats()["counters"]
+        want = {"requests.submitted": r + p, "requests.resubmitted": p,
+                "requests.retired": r + p, "requests.resolved": r - e,
+                "requests.partial": p + e, "requests.expired": e}
+        got = {k: c.get(k, 0) for k in want}
+        assert got == want, f"{cell} counters {got} != {want}"
+
+    def phase_serve(self):
+        """The serving path through its entry points: BIFEngine over the
+        dense and sparse operators on every backend, rank_blocks and a
+        streaming BlockRanker over a KV head's keys, and the obs smoke;
+        see the module docstring."""
+        from repro_torch import obs
+        from repro_torch.core import SolverConfig
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.kernels import lanczos_step as ls
+        from repro_torch.obs import smoke as obs_smoke
+        from repro_torch.serve import BlockRanker, flush_trace_count, \
+            rank_blocks
+        from repro_torch.kernels import reset_launches
+
+        out_dir = Path(__file__).resolve().parent / "build" / "obs_smoke"
+        smoke = obs_smoke.run(out_dir, device=self.dev)
+        reset_launches()
+        launches_all = {}
+
+        def add(diff):
+            for k, v in diff.items():
+                launches_all[k] = launches_all.get(k, 0) + v
+
+        summary = {"phase": "serve", "obs_smoke": {
+            k: smoke[k] for k in ("events", "retraces", "rounds", "device")}}
+        for cell in ("dense", "sparse"):
+            sv = self.serve_problem(cell)
+            ref = self.serve_run(cell, "reference")
+            self.serve_line(cell, "reference", "continuous", ref)
+            self.serve_counters(ref[0], cell)
+            runs = [("pallas", "continuous"), ("fused", "continuous")]
+            if cell == "dense":
+                runs.append(("fused", "lockstep"))
+            res = {}
+            for backend, mode in runs:
+                tele = cell == "dense" and backend == "pallas"
+                if tele:     # spans and a convergence log on this run
+                    obs.enable()
+                try:
+                    run = self.serve_run(
+                        cell, backend, mode,
+                        log=obs.ConvergenceLog() if tele else None)
+                finally:
+                    obs.metrics.set_enabled(True)
+                    obs.spans.set_enabled(False)
+                eng, reqs, out, _, diff = run
+                add(diff[0])
+                line = self.serve_line(cell, backend, mode, run)
+                assert all(a is b for a, b in zip(out, reqs)) \
+                    and len(out) == len(reqs), "submission order"
+                slack = 1e-9
+                if cell == "sparse" and backend == "pallas":
+                    # K2's f32 accumulation (ROADMAP Queue 3, Contracts)
+                    slack = sv["iv"][1] / sv["iv"][0] * 2.0 ** -24
+                res[(backend, mode)] = self.serve_compare(
+                    f"{cell} {backend} {mode}", reqs, ref[1], cell, slack,
+                    lockstep=mode == "lockstep")
+                if mode == "continuous":
+                    self.serve_counters(eng, cell)
+                    res[(backend, mode)]["partials_bit_exact"] = \
+                        self.serve_partials(cell, backend, reqs)
+                launched, k34, k2 = diff
+                if backend == "pallas":
+                    assert launched["gql_update"] > 0, f"{cell}: no K1"
+                if cell == "dense" and backend == "fused":
+                    assert launched["fused_step_dense"] > 0 and \
+                        k34["dmma"] == launched["fused_step_dense"], \
+                        f"dense {mode}: K3 off its dmma route {k34}"
+                if cell == "sparse":
+                    assert_tiled(launched, {"bell_matvec": k2,
+                                            "fused_step_bell": k34})
+                    kernel = "bell_matvec" if backend == "pallas" \
+                        else "fused_step_bell"
+                    assert launched[kernel] > 0, f"sparse: no {kernel}"
+                if tele:
+                    # the same traffic with every piece of telemetry off
+                    obs.disable()
+                    try:
+                        _, quiet, _, _, _ = self.serve_run(
+                            cell, backend, metrics=False)
+                    finally:
+                        obs.metrics.set_enabled(True)
+                        obs.spans.set_enabled(False)
+                    assert [(r.lower, r.upper, r.decision, r.certified,
+                             r.iterations, r.resolved) for r in reqs] == \
+                        [(r.lower, r.upper, r.decision, r.certified,
+                          r.iterations, r.resolved) for r in quiet], \
+                        "telemetry changed the results"
+                    assert eng.convergence_log.rounds == \
+                        line["rounds"], "convergence log missed rounds"
+                    res[(backend, mode)]["telemetry_bit_identical"] = True
+            summary[cell] = {f"{b} {m}": v for (b, m), v in res.items()}
+
+        # serve-kv: rank_blocks on every backend, then a streaming ranker
+        kv = self.kv_problem()
+        truth = kv["truth"]
+        ranked = {}
+        for backend in ("reference", "pallas", "fused"):
+            cfg = SolverConfig(**KV, backend=backend)
+            kw = dict(block=KV_BLOCK, max_batch=SERVE_POOL,
+                      coarse_iters=KV_COARSE, solver_config=cfg,
+                      device=self.dev)
+            before, routes = dict(LAUNCHES), dict(ls.ROUTES)
+            count0 = flush_trace_count()
+            (order, st), seconds = self.run_timed(
+                lambda: rank_blocks(kv["keys"], **kw))
+            count1 = flush_trace_count()
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            k3 = {k: ls.ROUTES[k] - routes[k] for k in ls.ROUTES}
+            add(launched)
+            b = np.array(st["brackets"])
+            miss = np.maximum(b[:, 0] - truth, truth - b[:, 1]) / truth
+            # a second call in the same padding bucket (248 blocks, n_pad
+            # 256) meets no new driver signature
+            rank_blocks(kv["keys"][:(st["blocks"] - 8) * KV_BLOCK], **kw)
+            ranked[backend] = (order, b)
+            emit({"phase": "serve", "cell": "kv", "backend": backend,
+                  "blocks": st["blocks"], "seconds": seconds,
+                  "iterations": st["iterations"], "refined": st["refined"],
+                  "resolved": st["resolved"], "certified": st["certified"],
+                  "max_rel_miss": float(miss.max()), "slack": KV_SLACK,
+                  "new_signatures": count1 - count0,
+                  "launches": {k: v for k, v in launched.items() if v},
+                  "k3_routes": {k: v for k, v in k3.items() if v}})
+            assert float(miss.max()) <= KV_SLACK, \
+                f"kv {backend}: a bracket misses its truth"
+            assert count1 > count0 and flush_trace_count() == count1, \
+                f"kv {backend}: the same-bucket call met a new signature"
+            if backend == "pallas":
+                assert launched["gql_update"] > 0, "kv: no K1"
+            if backend == "fused":
+                assert k3["fma_f32"] > 0 and \
+                    k3["fma_f32"] == launched["fused_step_dense"], \
+                    f"kv: K3 off its f32 route {k3}"
+        ref_order, ref_b = ranked["reference"]
+        gap = KV_SLACK * np.abs(truth)
+        separated = 0
+        for backend in ("pallas", "fused"):
+            order = ranked[backend][0]
+            pos = np.empty(len(order), int)
+            pos[order] = np.arange(len(order))
+            rpos = np.empty(len(order), int)
+            rpos[ref_order] = np.arange(len(order))
+            sep = (ref_b[:, None, 0] - ref_b[None, :, 1]) > gap[:, None]
+            np.fill_diagonal(sep, False)
+            i, j = np.nonzero(sep)
+            assert np.all(pos[i] < pos[j]) and np.all(rpos[i] < rpos[j]), \
+                f"kv {backend}: order differs where brackets separate"
+            separated = len(i)
+        before = dict(LAUNCHES)
+        ranker = BlockRanker(block=KV_BLOCK, max_batch=SERVE_POOL,
+                             coarse_iters=KV_COARSE,
+                             solver_config=SolverConfig(**KV,
+                                                        backend="pallas"),
+                             device=self.dev)
+        (_, first), t_first = self.run_timed(
+            lambda: ranker.extend(kv["keys"]).rank())
+        (_, grown), t_grown = self.run_timed(
+            lambda: ranker.extend(kv["more"]).rank())
+        add({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        emit({"phase": "serve", "cell": "kv", "ranker": "BlockRanker",
+              "first": {k: first[k] for k in ("blocks", "solved",
+                                              "iterations")},
+              "grown": {k: grown[k] for k in ("blocks", "solved", "reused",
+                                              "refined", "iterations")},
+              "seconds": [t_first, t_grown],
+              "engine_builds": ranker.stats["engine_builds"]})
+        assert grown["blocks"] == first["blocks"] + KV_MORE // KV_BLOCK
+        assert grown["solved"] * 4 <= grown["blocks"], \
+            "the grown ranking re-solved most blocks"
+        summary.update(kv_pairs_separated=separated,
+                       signatures=obs.retrace_counts(),
+                       launches=launches_all)
+        emit(summary)
+        assert smoke["events"] > 0
+        self._count(launches_all)
+
     def phase_attention(self):
         """The K7 path: mha_flash over one llama3-405b attention layer,
         a 4096-token causal prefill in bf16, then a decode-shaped call (the
@@ -1761,6 +2186,9 @@ class Smoke:
         calls["apps greedy_map pallas"] = lambda: greedy_map(
             Dense(xp["greedy_a"]), GREEDY_K, *xp["greedy_iv"],
             max_iters=APPS["max_iters"], solver=k1)
+        for backend in ("pallas", "fused"):
+            calls[f"serve dense flush {backend}"] = \
+                lambda b=backend: self.serve_run("dense", b)[2]
         for what, fn in calls.items():
             if not what.startswith("trace"):   # the trace phase warmed these
                 fn()
@@ -1792,9 +2220,13 @@ class Smoke:
                   "idle_share": 1.0 - dev_s / host_s,
                   "profiled_call_s": prof_s,
                   "kernels_ms": dict(top),
-                  # the port's own kernels, whether or not among the top
+                  # the port's own kernels, whether or not among the top,
+                  # and each one's share of the device time
                   "port_kernels_ms": {k: ms for k, ms in kernels.items()
-                                      if k in PORT_KERNELS}})
+                                      if k in PORT_KERNELS},
+                  "port_kernel_shares": {
+                      k: ms / 1e3 / dev_s for k, ms in kernels.items()
+                      if k in PORT_KERNELS and dev_s}})
 
     def phase_yardsticks(self):
         """The library yardsticks (BSR @ dense for K2, K4 and K5; torch.bmm

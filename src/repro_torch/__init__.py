@@ -6,11 +6,13 @@ matrix-function and block-Krylov brackets, the Alg. 2 solver, the
 stochastic trace and the paper's applications (DPP / k-DPP chains,
 greedy MAP, double greedy, the incremental Cholesky factor);
 ``kernels`` the hand-written Hopper kernels K1-K7 with their plain
-PyTorch versions; ``data`` numpy matrix builders; and ``convert`` numpy
-leaves to the port's states. Importing it needs no
+PyTorch versions; ``serve`` the continuous-batching ``BIFEngine`` and the
+KV-cache block rankers; ``obs`` metrics, spans, the driver-signature
+registry and convergence health; ``data`` numpy matrix builders; and
+``convert`` numpy leaves to the port's states. Importing it needs no
 GPU, ``nvcc`` or ``triton``: the kernels build at first CUDA use.
 """
-from . import convert, core, data, kernels  # noqa: F401
+from . import convert, core, data, kernels, obs, serve  # noqa: F401
 from .core import ArgmaxResult, BIFSolver, BlockState, ChainFactor, \
     ChainState, CoeffHistory, Dense, DGResult, GreedyMapResult, Jacobi, \
     JudgeResult, LogLikelihoodResult, Masked, MatvecFn, QuadratureTrace, \

@@ -4,7 +4,9 @@
 Python metadata (the leaves of an operator or of a
 ``GQLState``/``LanczosState``/``CoeffHistory``/``BlockState``/
 ``QuadState``/``ChainFactor``/``ChainState``) and return the port's
-operator or state on ``device``. Whoever holds another package's arrays
+operator or state on ``device``; ``request_from_numpy`` builds a
+``BIFRequest`` whose banked per-lane state (a ``QuadState`` over a 1-D
+``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``. Whoever holds another package's arrays
 converts them to numpy first, so this module never sees them; it is what
 lets a parity test start two implementations from identical states.
 """
@@ -130,3 +132,29 @@ def state_from_numpy(fields: dict, *, device="cuda"):
     raise ValueError(f"fields {sorted(keys)} match no LanczosState, "
                      f"GQLState, CoeffHistory, BlockState, QuadState, "
                      f"ChainFactor or ChainState")
+
+
+def request_from_numpy(fields: dict, *, device="cuda"):
+    """Build a ``serve.BIFRequest`` from another package's request: its
+    public fields as numpy arrays and Python values, with ``state`` a
+    banked per-lane state as ``state_from_numpy`` takes it (``op`` a
+    ``('masked', {'base': ..., 'mask': (N,)})`` pair, ``basis`` None), a
+    built ``QuadState``, or None. A banked state resumes where the other
+    package stopped when the request is submitted to a port
+    ``BIFEngine`` on ``device``: the request banks the query ``u * mask``
+    in the state's dtype, as a request banked by the port does, so
+    ``submit`` still rejects a later change of ``u`` or ``mask``."""
+    from .serve.engine import BIFRequest
+
+    fields = dict(fields)
+    state = fields.pop("state", None)
+    if isinstance(state, dict):
+        state = state_from_numpy(state, device=device)
+    req = BIFRequest(state=state, **fields)
+    if state is not None:
+        dt = state.st.lz.v.detach().cpu().numpy().dtype
+        u = np.asarray(req.u, dt)
+        mask = np.ones(u.shape, dt) if req.mask is None \
+            else np.asarray(req.mask, dt)
+        req._banked_query = u * mask
+    return req

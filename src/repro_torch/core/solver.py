@@ -533,14 +533,18 @@ class BIFSolver:
         return needs_more, round_fn
 
     def step_n(self, state: QuadState, n: int, decide=None, *,
-               it_cap=None) -> QuadState:
+               it_cap=None, convergence_log=None) -> QuadState:
         """Advance ``state`` by at most ``n`` quadrature iterations, with
         the same freezing as ``resume``, so ``resume(step_n(state, k))``
         reproduces ``resume(state)``. With ``decide_every = R`` states stay
         round-aligned: at most ``floor(n / R) * R`` steps (``n < R`` is a
         no-op). One ``needs_more.any()`` host read per round; the bracket
         (an eigensolve on matfun and block states) is evaluated once per
-        round."""
+        round.
+
+        ``convergence_log`` (an :class:`repro_torch.obs.ConvergenceLog`)
+        records the returned state's bracket and iteration counts, a host
+        copy of the finished result, so logging is bit-invariant."""
         if n < 0:
             raise ValueError(f"n must be >= 0, got {n}")
         rounds = n // self.config.decide_every
@@ -556,7 +560,10 @@ class BIFSolver:
                                                    nm))
             nm = needs_more(st, coeffs)
             taken += 1
-        return state._replace(st=st, basis=basis, coeffs=coeffs, step=step)
+        out = state._replace(st=st, basis=basis, coeffs=coeffs, step=step)
+        if convergence_log is not None:
+            convergence_log.record_state(out)
+        return out
 
     def resume(self, state: QuadState, decide=None, *,
                it_cap=None) -> QuadState:
@@ -644,12 +651,17 @@ class BIFSolver:
         return self.finalize(state, decide)
 
     def trace(self, op, u: Tensor, num_iters: int, *, lam_min=None,
-              lam_max=None, probe=None) -> QuadratureTrace:
+              lam_max=None, probe=None,
+              convergence_log=None) -> QuadratureTrace:
         """Run exactly ``num_iters`` iterations, recording all four
         estimate sequences (paper Fig. 1). For matfun states the fields
         are oriented per the sign table: ``radau_lower``/``radau_upper``
         the tight bracket, ``gauss``/``lobatto`` the loose lower/upper
-        (the Lobatto/Gauss rules respectively for log-like f)."""
+        (the Lobatto/Gauss rules respectively for log-like f).
+
+        ``convergence_log`` (an :class:`repro_torch.obs.ConvergenceLog`)
+        records the returned Radau bracket per iteration, read off the
+        finished trace on the host, bit-identical to the returned fields."""
         if num_iters < 1:
             raise ValueError(f"num_iters must be >= 1, got {num_iters}")
         state = self.init_state(op, u, lam_min=lam_min, lam_max=lam_max,
@@ -671,7 +683,10 @@ class BIFSolver:
                                               step, stepfn)
             step = step + 1
             seqs.append(estimates(st, coeffs))
-        return QuadratureTrace(*(torch.stack(f) for f in zip(*seqs)))
+        tr = QuadratureTrace(*(torch.stack(f) for f in zip(*seqs)))
+        if convergence_log is not None:
+            convergence_log.record_trace(tr)
+        return tr
 
     # -- judges and the batched driver --------------------------------------
 

@@ -855,3 +855,117 @@ def test_k7_refuses_what_it_does_not_take(cuda):
                       torch.zeros(1, 5, 2, 32, device=cuda),
                       torch.zeros(1, 5, 2, 32, device=cuda))
     assert ops.LAUNCHES["flash_attention"] == before
+
+
+# -- the serving path: BIFEngine's pool on the card --------------------------
+
+def _engine_traffic(n=200, count=100, seed=61):
+    """A 64-lane engine's traffic: judges 2-4x off their truth, brackets,
+    every 8th request over a principal-submatrix mask."""
+    from repro_torch.serve import BIFRequest
+    a = _spd(n, seed, kappa=50.0)
+    rng = np.random.default_rng(seed + 1)
+    us = rng.standard_normal((count, n))
+    true = np.einsum("ki,ki->k", us, np.linalg.solve(a, us.T).T)
+    reqs = []
+    for i, u in enumerate(us):
+        mask = (rng.random(n) < 0.5).astype(float) if i % 8 == 7 else None
+        f = rng.uniform(2.0, 4.0)
+        t = None if i % 4 == 0 or mask is not None else \
+            float(true[i] * (f if i % 2 else 1.0 / f))
+        reqs.append(lambda u=u, t=t, mask=mask: BIFRequest(u=u, t=t,
+                                                           mask=mask))
+    w = np.linalg.eigvalsh(a)
+    return a, reqs, dict(lam_min=float(w[0] * 0.99),
+                         lam_max=float(w[-1] * 1.01))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+@pytest.mark.parametrize("mode", ["continuous", "lockstep"])
+def test_bif_engine_flush_on_the_card_matches_cpu_plain(cuda, backend, mode):
+    """A 64-lane flush whose pool lives on the card (K1 on 'pallas', K3 on
+    'fused') serves the CPU plain run's outcomes: equal decisions, flags
+    and iterations, brackets to 1e-12, in submission order."""
+    from repro_torch.serve import BIFEngine
+    a, reqs, lam = _engine_traffic()
+    sv = BIFSolver.create(max_iters=220, rtol=1e-6, backend=backend)
+    runs = {}
+    kernel = "gql_update" if backend == "pallas" else "fused_step_dense"
+    for dev in (torch.device("cpu"), cuda):
+        eng = BIFEngine(Dense(torch.tensor(a, device=dev)), solver=sv,
+                        max_batch=64, chunk_iters=8, **lam)
+        before = ops.LAUNCHES[kernel]
+        sub = [eng.submit(r()) for r in reqs]
+        out = eng.flush(mode=mode)
+        assert all(x is y for x, y in zip(out, sub)) and len(out) == len(sub)
+        runs[dev.type] = (out, ops.LAUNCHES[kernel] - before)
+    (cpu, cpu_launches), (card, card_launches) = runs["cpu"], runs["cuda"]
+    assert cpu_launches == 0 and card_launches > 0
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        assert (g.decision, g.certified, g.resolved, g.iterations) == \
+            (w.decision, w.certified, w.resolved, w.iterations), i
+        np.testing.assert_allclose([g.lower, g.upper], [w.lower, w.upper],
+                                   rtol=1e-12, err_msg=str(i))
+        assert g.resolved
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas", "fused"])
+def test_banked_partial_resumes_bit_exactly_on_the_card(cuda, backend):
+    """A partial banked from slot 3 of a pool on the card (a clone of its
+    lane) resumes, after other traffic has stepped the pool and with 40
+    requests ahead of it in the queue, in slot 3 again (on the card a
+    lane's bits depend on its slot) and to the bits of an uninterrupted
+    run in that slot."""
+    from repro_torch.serve import BIFEngine, BIFRequest
+    a, reqs, lam = _engine_traffic(n=161, count=40, seed=71)
+    op = Dense(torch.tensor(a, device=cuda))
+    sv = BIFSolver.create(max_iters=170, rtol=1e-10, backend=backend)
+    u = np.random.default_rng(72).standard_normal(a.shape[0])
+    whole = BIFEngine(op, solver=sv, max_batch=64, **lam)
+    for r in reqs[:3]:
+        whole.submit(r())
+    want = whole.submit(BIFRequest(u=u))
+    whole.flush()
+    eng = BIFEngine(op, solver=sv, max_batch=64, chunk_iters=8, **lam)
+    for r in reqs[:3]:
+        eng.submit(r())
+    part = eng.submit(BIFRequest(u=u, max_iters=5))
+    for r in reqs[3:]:
+        eng.submit(r())
+    eng.flush()
+    assert part.resolved is False and part.iterations == 5
+    assert part.state.st.lz.v.device.type == "cuda"
+    for r in reqs:
+        eng.submit(r())
+    part.max_iters = None
+    eng.submit(part)
+    eng.flush()
+    assert (part.lower, part.upper, part.iterations) == \
+        (want.lower, want.upper, want.iterations)
+
+
+def test_span_block_until_ready_synchronises_only_while_live(cuda,
+                                                            monkeypatch):
+    from repro_torch import obs
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: calls.append(device) or
+                        real(device))
+    x = torch.ones(8, device=cuda)
+    try:
+        obs.spans.set_enabled(False)
+        with obs.span("off") as sp:
+            assert sp.block_until_ready((x, x)) is not None
+        assert calls == []
+        obs.spans.set_enabled(True)
+        with obs.span("on") as sp:
+            sp.block_until_ready({"a": x, "b": [x.cpu()]})
+            assert len(calls) == 1 and calls[0].type == "cuda"
+            sp.block_until_ready(torch.ones(2))   # CPU tensors: no sync
+            assert len(calls) == 1
+        sp.block_until_ready(x)                   # the span has closed
+        assert len(calls) == 1
+    finally:
+        obs.spans.set_enabled(False)
+        obs.spans.reset()
