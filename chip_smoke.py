@@ -74,22 +74,37 @@ It runs every phase, in order, each printing one JSON line:
                  decisions and flags on every backend and mode, brackets
                  holding their truths, partials resuming bit-exactly,
                  results bit-identical with telemetry on and off;
- 10. attention -- one attention layer of llama3-405b (128 query heads over
+ 10. sharded  -- the multi-device lanes (core/sharded.py): the dense cell's
+                 solve and judge on 'pallas' (K1) and 'fused' (K3), its
+                 greedy-MAP argmax round on 'fused', the sparse cell's
+                 solve on 'pallas' (K2 + K1) and 'fused' (K4), each with
+                 its 64 lanes split over a lane mesh: at D = 1 on NCCL in
+                 this process, then at D = 2 and 4 on gloo ranks that
+                 share the card (spawned; NCCL takes a card a rank; on a
+                 machine with more cards, NCCL over all of them too), with
+                 the dense cell again at 62 lanes (padding at D = 4), and
+                 at D = 2 the block logdet (K5), the serve-dense traffic
+                 through BIFEngine(mesh=) and greedy MAP (k = 32). Each
+                 against the same call on one device: equal outcomes on
+                 every rank, iterations within 1, brackets within the
+                 stated slack and around their truths, one gather a
+                 round, the expected kernel routes on every rank;
+ 11. attention -- one attention layer of llama3-405b (128 query heads over
                  8 kv heads, head width 128, bf16): mha_flash over a 4096-
                  token causal prefill (which must take the wgmma route), a
                  decode-shaped call (one query over the 4096 keys) and an
                  f32 call over 16 heads, each against the plain version on
                  the card row by row, and the same measure on planted
                  faults, which it must catch;
- 11. coo      -- two SparseCOO matvecs on the card give identical bits;
- 12. profile  -- each path call again (and the DPP chain and the greedy
+ 12. coo      -- two SparseCOO matvecs on the card give identical bits;
+ 13. profile  -- each path call again (and the DPP chain and the greedy
                  MAP call on 'pallas', with K1's share, and the serve-dense
                  flushes on 'pallas' and 'fused'), warm: host
                  seconds beside the device time of every kernel it
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 13. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 14. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -121,8 +136,8 @@ except ImportError:  # no PyTorch at all: nothing to drive
     torch = None
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
-          "bilinear", "apps", "serve", "attention", "coo", "profile",
-          "yardsticks")
+          "bilinear", "apps", "serve", "sharded", "attention", "coo",
+          "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -205,6 +220,48 @@ SERVE_SPARSE = dict(max_iters=384, rtol=1e-3)
 KV_TOKENS, KV_DIM, KV_CLUSTERS, KV_BLOCK, KV_MORE = 32768, 128, 64, 128, 1024
 KV_NOISE, KV_COARSE, KV_SLACK = 4.0, 8, 1e-5
 KV = dict(max_iters=64, rtol=1e-3)
+# The multi-device lanes (sharded phase): the dense and sparse cells'
+# calls with their K lanes split over a lane mesh, each against the same
+# call on one device in this process. NCCL refuses two ranks on one
+# card, so NCCL runs at D = 1 in this process, and gloo ranks sharing
+# card 0 run D = 2 and 4 (SHARDED_SPAWNS: spawned after the build, so
+# they load the built kernels; the round's scalars through host memory).
+# The dense cell again with SHARDED_PADDED_K lanes (padding at D = 4); at
+# D = 2 also the trace, serve-dense and greedy-MAP calls. On a machine
+# with more than one card, NCCL also runs one rank a card over all of
+# them, with every call.
+SHARDED_CALLS = ("dense solve pallas", "dense solve fused",
+                 "dense judge pallas", "dense judge fused",
+                 "dense argmax fused", "sparse solve pallas",
+                 "sparse solve fused")
+SHARDED_ALL = SHARDED_CALLS + ("dense62 solve pallas", "trace logdet pallas",
+                               "serve flush pallas", "greedy map pallas")
+SHARDED_SPAWNS = ((2, "gloo", SHARDED_ALL),
+                  (4, "gloo", SHARDED_CALLS + ("dense62 solve pallas",)))
+SHARDED_PADDED_K, SHARDED_TIMEOUT_S, SHARDED_THREADS = 62, 300.0, 2
+# the calls a spawned rank warms and profiles (device seconds, idle share)
+SHARDED_PROFILED = ("dense solve pallas", "dense solve fused",
+                    "sparse solve pallas", "sparse solve fused")
+# Brackets of a lane that took the same steps on D ranks and on one
+# device agree within SHARDED_SLACK relative where the lane's arithmetic
+# does not depend on the batch width (K1, K2's tiled route, K4, K5, the
+# judges' and the race's brackets: 0 to 1.2e-13 on the card). The dense
+# cell's matvec does: cuBLAS picks another gemm for (32, N) or (16, N)
+# queries than for (64, N) on 'pallas', as K3's tile does on 'fused', and
+# Lanczos without reorthogonalisation amplifies those last bits over the
+# solve's 113 steps to 3.7e-8 (PERF.md). There the two brackets, both
+# certified to the cell's rtol, are held to that width and to the
+# dense-solve truth instead.
+SHARDED_SLACK = 1e-12
+SHARDED_WIDTH_CALLS = ("dense solve pallas", "dense solve fused",
+                       "dense62 solve pallas", "serve flush pallas")
+# the kernels each call must launch on every rank: {kernel: route
+# counter that must equal its launches, or None}
+SHARDED_KERNELS = {
+    "pallas": {"gql_update": None}, "fused": {"fused_step_dense": "dmma"},
+    "sparse pallas": {"gql_update": None, "bell_matvec": "tiled"},
+    "sparse fused": {"fused_step_bell": "bell_dmma"},
+    "trace": {"bell_matvec_mrhs": "wgmma"}}
 # The K7 path (attention phase): one attention layer of llama3-405b
 # (src/repro/configs/llama3_405b.py: 128 query heads over 8 kv heads,
 # head width 128, bf16 weights and activations), a 4096-token prefill.
@@ -461,6 +518,263 @@ def sdpa_gqa(q, k, v):
 def causal_pairs(t_len: int, s_len: int) -> int:
     """(query, key) pairs a causal mask keeps, zero-aligned: key j <= i."""
     return sum(min(i + 1, s_len) for i in range(t_len))
+
+
+def serve_flow(op, reqs, partial, solver, iv, *, mode="continuous",
+               mesh=None, metrics=True, log=None):
+    """The serve traffic through one BIFEngine: submit every request,
+    flush, resubmit the budget partials ``partial`` with the full budget
+    and flush again (with ``partial`` empty, one flush). Returns the
+    engine, the submitted requests and the first flush's list."""
+    from repro_torch.serve import BIFEngine, BIFRequest
+    eng = BIFEngine(op, solver=solver, max_batch=SERVE_POOL,
+                    chunk_iters=SERVE_CHUNK, lam_min=iv[0], lam_max=iv[1],
+                    metrics=metrics, convergence_log=log, mesh=mesh)
+    reqs = [eng.submit(BIFRequest(**r)) for r in reqs]
+    out = eng.flush(mode=mode)
+    for i in partial:
+        reqs[i].max_iters = None
+        eng.submit(reqs[i])
+    if partial:
+        eng.flush()
+    return eng, reqs, out
+
+
+def sharded_problems(job, dev) -> dict:
+    """The sharded phase's inputs on ``dev``, from the numpy job the
+    parent hands its ranks."""
+    from repro_torch.core import SparseBELL
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    bell = SparseBELL(t(job["bell_data"]), t(job["bell_cols"]),
+                      t(job["bell_diag"]), job["bell_n"])
+    return dict(
+        a=t(job["a"]), u=t(job["u"]), t=t(job["t"]), masks=t(job["masks"]),
+        um=t(job["um"]), shift=t(job["shift"]), bell=bell,
+        trace_op=dataclasses.replace(bell, diag_vals=bell.diag_vals.to(
+            torch.float64)),
+        u_sparse=t(job["u_sparse"]), greedy_a=t(job["greedy_a"]),
+        **{k: job[k] for k in ("iv", "iv_sparse", "greedy_iv", "reqs",
+                               "partial")})
+
+
+def sharded_call(name, p, mesh):
+    """A zero-argument call of the sharded phase: ``name`` is
+    '<cell> <what> <backend>'; ``mesh`` None gives its single-device
+    twin."""
+    from repro_torch.core import BIFSolver, Dense, greedy_map, logdet_quad, \
+        stack_masks
+    cell, what, backend = name.split()
+    on = {} if mesh is None else {"mesh": mesh}
+    sfx = "" if mesh is None else "_sharded"
+    if cell == "trace":
+        return lambda: logdet_quad(
+            p["trace_op"], PROBES, block_size=BLOCK, key=SEED,
+            solver=BIFSolver.create(backend=backend, **TRACE_BLOCK),
+            lam_min=p["iv_sparse"][0], lam_max=p["iv_sparse"][1], **on)
+    if cell == "serve":
+        return lambda: serve_flow(
+            Dense(p["a"]), p["reqs"], p["partial"], BIFSolver.create(
+                **SERVE_DENSE, backend=backend), p["iv"], **on)[1]
+    if cell == "greedy":
+        return lambda: greedy_map(
+            Dense(p["greedy_a"]), GREEDY_K, *p["greedy_iv"],
+            max_iters=APPS["max_iters"],
+            solver=BIFSolver.create(**APPS, backend=backend), **on)
+    sparse = cell == "sparse"
+    s = BIFSolver.create(**(SPARSE if sparse else DENSE), backend=backend)
+    op = p["bell"] if sparse else Dense(p["a"])
+    u = p["u_sparse"] if sparse else p["u"]
+    u = u[:SHARDED_PADDED_K] if cell == "dense62" else u
+    lo, hi = p["iv_sparse"] if sparse else p["iv"]
+    iv = dict(lam_min=lo, lam_max=hi, **on)
+    if what == "solve":
+        return lambda: getattr(s, "solve_batch" + sfx)(op, u, **iv)
+    if what == "judge":
+        return lambda: getattr(s, "judge_batch" + sfx)(op, u, p["t"], **iv)
+    return lambda: getattr(s, "judge_argmax" + sfx)(
+        stack_masks(op, p["masks"]), p["um"], shift=p["shift"], scale=-1.0,
+        **iv)
+
+
+def sharded_view(out) -> dict:
+    """A call's outcome as host numpy: the per-lane (or per-request)
+    discrete outcomes and brackets."""
+    def h(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    if isinstance(out, list):         # a flush: its requests
+        return {"decision": np.array([-1 if r.decision is None else
+                                      int(r.decision) for r in out]),
+                "certified": np.array([bool(r.certified) for r in out]),
+                "resolved": np.array([bool(r.resolved) for r in out]),
+                "iterations": np.array([r.iterations for r in out]),
+                "lower": np.array([np.nan if r.lower is None else r.lower
+                                   for r in out]),
+                "upper": np.array([np.nan if r.upper is None else r.upper
+                                   for r in out])}
+    if hasattr(out, "std_error"):     # a trace: its lanes' brackets
+        st = out.state
+        return {"lower": st.probe_lower, "upper": st.probe_upper,
+                "iterations": st.iterations}
+    if hasattr(out, "order"):         # greedy MAP
+        return {"order": h(out.order), "certified": h(out.certified),
+                "gains": h(out.gains)}
+    keep = ("decision", "index", "certified", "iterations", "lower",
+            "upper")
+    return {f: h(getattr(out, f)) for f in keep if f in out._fields}
+
+
+def sharded_compare(name, got, want, slack, truth=None,
+                    truth_slack=None) -> dict:
+    """Hold a sharded call's view against its single-device twin: the
+    discrete outcomes equal, iterations within 1 per lane, and where a
+    lane took the same iterations its bracket within ``slack``
+    relative; with ``truth``, every bracket (NaN: a request retired
+    unresolved) around it within ``truth_slack`` relative."""
+    out, same = {"slack": slack}, None
+    if "iterations" in want:
+        diff = np.abs(got["iterations"].astype(np.int64)
+                      - want["iterations"].astype(np.int64))
+        same = diff == 0
+        out.update(max_iter_diff=int(diff.max()),
+                   lanes_iter_diff=int((~same).sum()))
+        assert int(diff.max()) <= 1, f"{name}: iterations differ by >1"
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if k == "iterations":
+            continue
+        if k in ("lower", "upper", "gains"):
+            m = np.isfinite(w)
+            if same is not None and same.shape == w.shape:
+                m &= same
+            rel = np.abs(g[m] - w[m]) / np.maximum(np.abs(w[m]), 1e-300)
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+        else:
+            assert np.array_equal(g, w), f"{name}: {k} differs"
+    out["max_rel_bracket_diff"] = worst
+    assert worst <= slack, f"{name}: brackets differ by {worst} > {slack}"
+    if truth is not None:
+        lo, hi = got["lower"], got["upper"]
+        m = np.isfinite(lo)
+        miss = np.maximum(lo[m] - truth[m], truth[m] - hi[m]) \
+            / np.abs(truth[m])
+        out.update(max_rel_miss=float(miss.max()), truth_slack=truth_slack)
+        assert float(miss.max()) <= truth_slack, \
+            f"{name}: a bracket misses its truth by {float(miss.max())}"
+    return out
+
+
+def sharded_measure(name, p, mesh, *, profile: bool) -> dict:
+    """One sharded call, measured: host seconds of a warm call, its
+    rounds and gathers (``core.sharded.COUNTS``), its launches and routes
+    by kernel, its view; with ``profile``, the device seconds of a second
+    call (torch.profiler; NCCL's kernels apart) and the idle share 1 -
+    device / host."""
+    from repro_torch.core import sharded
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import lanczos_step as ls
+    from repro_torch.kernels import spmv_bell as sb
+    fn = sharded_call(name, p, mesh)
+    cuda = p["a"].device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if profile:
+        fn()                          # warm
+    reset_launches()
+    sharded.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    host_s = time.perf_counter() - t0
+    c = dict(sharded.COUNTS)
+    rec = {"seconds": host_s, "counts": c, "cuda": cuda,
+           "bytes_per_gather": c["bytes"] / max(c["gathers"], 1),
+           "launches": {k: v for k, v in LAUNCHES.items() if v},
+           "routes": {k: v for k, v in {**ls.ROUTES, **sb.ROUTES,
+                                        **sb.MRHS_ROUTES}.items() if v},
+           "view": sharded_view(out)}
+    if profile and cuda:
+        # NCCL's gather kernels spin on the device until the slowest rank
+        # arrives: counted apart, not as device work
+        ms = {k: v for k, (v, _) in device_kernels(fn).items()}
+        dev_s = sum(v for k, v in ms.items() if not k.startswith("nccl"))
+        rec.update(device_s=dev_s / 1e3, idle_share=1.0 - dev_s / 1e3 / host_s,
+                   nccl_s=sum(v for k, v in ms.items()
+                              if k.startswith("nccl")) / 1e3)
+    return rec
+
+
+def sharded_check_rank(name, rec) -> None:
+    """The collective rule and the kernel routes of one rank's call:
+    gathers = boundaries + finalizes + clocks, boundaries = rounds +
+    drives (a solve: rounds + 2), and every expected kernel launched,
+    on its route."""
+    c = rec["counts"]
+    assert c["gathers"] == c["boundaries"] + c["finalizes"] + c["clocks"] \
+        and c["boundaries"] == c["rounds"] + c["drives"], f"{name}: {c}"
+    cell, _, backend = name.split()
+    if cell in ("dense", "dense62", "sparse", "trace"):
+        assert c["drives"] == c["finalizes"] == 1 \
+            and c["gathers"] == c["rounds"] + 2, f"{name}: {c}"
+    if not rec["cuda"]:
+        return                        # a rehearsal on the CPU: no kernels
+    key = "trace" if cell == "trace" else \
+        f"sparse {backend}" if cell == "sparse" else backend
+    for kernel, route in SHARDED_KERNELS[key].items():
+        n = rec["launches"].get(kernel, 0)
+        # greedy MAP's races end mostly at their first brackets: a rank
+        # whose candidates all do launches nothing (the phase holds the
+        # ranks' sum above 0)
+        assert n > 0 or cell == "greedy", \
+            f"{name}: no {kernel} launch on this rank"
+        if route is not None:
+            assert rec["routes"].get(route, 0) == n, \
+                f"{name}: {kernel} off its {route} route {rec['routes']}"
+
+
+def sharded_rank(rank: int, world: int, backend: str, calls,
+                 job_dir: str) -> None:
+    """One rank of the sharded phase, spawned by it: ``calls`` on this
+    rank's card (gloo: card 0, shared; NCCL: a card a rank), each
+    measured and checked (``sharded_measure``, ``sharded_check_rank``),
+    pickled to ``job_dir``."""
+    import os
+    import pickle
+    import traceback
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.set_num_threads(SHARDED_THREADS)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import torch.distributed as dist
+        from repro_torch.launch import init_lane_group, make_lane_mesh
+        job_dir = Path(job_dir)
+        with open(job_dir / "job.pkl", "rb") as f:
+            job = pickle.load(f)
+        init_lane_group(backend, rank, world, store=dist.FileStore(
+            str(job_dir / f"store_{backend}{world}"), world), timeout_s=60.0)
+        try:
+            mesh = make_lane_mesh(device_type=job["device_type"])
+            dev = torch.device("cuda", torch.cuda.current_device()) \
+                if job["device_type"] == "cuda" else torch.device("cpu")
+            p = sharded_problems(job, dev)
+            recs = {}
+            for name in calls:
+                recs[name] = sharded_measure(
+                    name, p, mesh, profile=name in SHARDED_PROFILED)
+                sharded_check_rank(name, recs[name])
+        finally:
+            dist.destroy_process_group()
+        with open(job_dir / f"{backend}{world}_rank{rank}.pkl", "wb") as f:
+            pickle.dump(recs, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
 
 
 class Smoke:
@@ -1760,26 +2074,18 @@ class Smoke:
         from repro_torch.kernels import LAUNCHES
         from repro_torch.kernels import lanczos_step as ls
         from repro_torch.kernels import spmv_bell as sb
-        from repro_torch.serve import BIFEngine, BIFRequest
         sv = self.serve_problem(cell)
         cfg = SERVE_DENSE if cell == "dense" else SERVE_SPARSE
-        eng = BIFEngine(sv["op"], solver=BIFSolver.create(
-            **cfg, backend=backend), max_batch=SERVE_POOL,
-            chunk_iters=SERVE_CHUNK, lam_min=sv["iv"][0],
-            lam_max=sv["iv"][1], metrics=metrics, convergence_log=log)
         picked = sv["reqs"] if budgets else \
             [{k: v for k, v in r.items() if k != "max_iters"}
              for r in sv["reqs"]]
         before = (dict(LAUNCHES), dict(ls.ROUTES), dict(sb.ROUTES))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reqs = [eng.submit(BIFRequest(**r)) for r in picked]
-        out = eng.flush(mode=mode)
-        if mode == "continuous" and budgets:
-            for i in sv["partial"]:
-                reqs[i].max_iters = None
-                eng.submit(reqs[i])
-            eng.flush(mode=mode)
+        eng, reqs, out = serve_flow(
+            sv["op"], picked, sv["partial"] if mode == "continuous" and
+            budgets else (), BIFSolver.create(**cfg, backend=backend),
+            sv["iv"], mode=mode, metrics=metrics, log=log)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         diff = [{k: now[k] - was[k] for k in now} for now, was in
@@ -2051,6 +2357,146 @@ class Smoke:
         emit(summary)
         assert smoke["events"] > 0
         self._count(launches_all)
+
+    def phase_sharded(self):
+        """The multi-device lanes: every call of SHARDED_ALL on one
+        device in this process (the oracle), then at D = 1 on NCCL in this
+        process, then SHARDED_SPAWNS (gloo ranks that share the card) and,
+        with more than one card, NCCL a rank a card, spawned, each rank
+        timing its calls. Every rank returns the same
+        outcome, and it equals the oracle's: decisions, certification,
+        argmax index and selections; iterations within 1 per lane; the
+        brackets of lanes that took the same steps within SHARDED_SLACK
+        relative (K2's and K5's f32 paths within kappa 2^-24); one gather
+        per round (a solve: rounds + 2); the expected kernel routes on
+        every rank."""
+        import multiprocessing as mp
+        import pickle
+        import shutil
+
+        import torch.distributed as dist
+        from repro_torch.launch import init_lane_group, make_lane_mesh
+        d, sp, sv = self.dense_problem(), self.sparse_problem(), \
+            self.serve_problem("dense")
+        ap = self.apps_problem()
+        masks, um, shift, _ = self.argmax_problem()
+        truth = torch.sum(d["u"] * torch.linalg.solve(d["a"], d["u"].T).T,
+                          dim=-1)
+        rng = np.random.default_rng(SEED + 14)
+        delta = rng.uniform(0.05, 0.5, K) * rng.choice([-1.0, 1.0], K)
+        bell = sp["bell"]
+
+        def h(x):
+            return x.detach().cpu().numpy()
+
+        job = dict(
+            device_type=self.dev.type, a=h(d["a"]), u=h(d["u"]),
+            t=h(truth) * (1.0 + delta), masks=h(masks), um=h(um),
+            shift=h(shift), bell_data=h(bell.data), bell_cols=h(bell.cols),
+            bell_diag=h(bell.diag_vals), bell_n=bell.n, u_sparse=h(sp["u"]),
+            greedy_a=h(ap["greedy_a"]), iv=(d["lmn"], d["lmx"]),
+            iv_sparse=(sp["lmn"], sp["lmx"]), greedy_iv=ap["greedy_iv"],
+            reqs=sv["reqs"], partial=sv["partial"])
+        job_dir = Path(__file__).resolve().parent / "build" / "sharded"
+        shutil.rmtree(job_dir, ignore_errors=True)
+        job_dir.mkdir(parents=True)
+        p = sharded_problems(job, self.dev)
+        seconds = {}
+        t0 = time.perf_counter()
+        want = {name: sharded_view(sharded_call(name, p, None)())
+                for name in SHARDED_ALL}
+        seconds["oracle"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        init_lane_group("nccl" if self.dev.type == "cuda" else "gloo", 0, 1,
+                        store=dist.FileStore(str(job_dir / "store1"), 1),
+                        timeout_s=60.0)
+        one = "nccl" if self.dev.type == "cuda" else "gloo"
+        try:
+            mesh = make_lane_mesh(device_type=self.dev.type)
+            results = {(1, one): [{name: sharded_measure(name, p, mesh,
+                                                         profile=True)
+                                   for name in SHARDED_CALLS}]}
+        finally:
+            dist.destroy_process_group()
+        seconds[f"{one} D=1"] = time.perf_counter() - t0
+        with open(job_dir / "job.pkl", "wb") as f:
+            pickle.dump(job, f)
+        ctx = mp.get_context("spawn")
+        cards = torch.cuda.device_count() if self.dev.type == "cuda" else 0
+        spawns = SHARDED_SPAWNS + (((cards, "nccl", SHARDED_ALL),)
+                                   if cards > 1 else ())
+        for world, backend, calls in spawns:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=sharded_rank, args=(
+                r, world, backend, calls, str(job_dir)))
+                for r in range(world)]
+            for q in procs:
+                q.start()
+            deadline = time.monotonic() + SHARDED_TIMEOUT_S
+            for q in procs:
+                q.join(max(deadline - time.monotonic(), 0.0))
+            for q in procs:
+                if q.is_alive():
+                    q.kill()
+                    q.join()
+            codes = [q.exitcode for q in procs]
+            assert codes == [0] * world, \
+                f"sharded {backend} D={world}: rank exit codes {codes}"
+            results[(world, backend)] = []
+            for r in range(world):
+                with open(job_dir / f"{backend}{world}_rank{r}.pkl",
+                          "rb") as f:
+                    results[(world, backend)].append(pickle.load(f))
+            seconds[f"{backend} D={world}"] = time.perf_counter() - t0
+
+        kappa = sp["lmx"] / sp["lmn"] * 2.0 ** -24
+        u_s = sp["u"]
+        truths = {"dense": h(truth), "sparse": h(torch.sum(
+            u_s * torch.linalg.solve(sp["a32"], u_s.T).T, dim=-1)),
+            "serve": sv["truth"]}
+        truths["dense62"] = truths["dense"][:SHARDED_PADDED_K]
+        launches = {}
+        for (world, backend), recs_by_rank in results.items():
+            for name in recs_by_rank[0]:
+                recs = [r[name] for r in recs_by_rank]
+                for r, rec in enumerate(recs):
+                    sharded_check_rank(name, rec)
+                    for k, v in rec["view"].items():
+                        assert np.array_equal(v, recs[0]["view"][k],
+                                              equal_nan=True), \
+                            f"{backend} D={world} {name}: rank {r} {k}"
+                    for k, v in rec["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+                cell, what, _ = name.split()
+                if cell == "greedy" and recs[0]["cuda"]:
+                    assert sum(r_["launches"].get("gql_update", 0)
+                               for r_ in recs) > 0, \
+                        f"{backend} D={world} {name}: no rank launched K1"
+                f32 = name in ("sparse solve pallas", "trace logdet pallas")
+                slack = kappa if f32 else DENSE["rtol"] \
+                    if name in SHARDED_WIDTH_CALLS else SHARDED_SLACK
+                truth = truths.get(cell) if what in ("solve", "flush") \
+                    else None
+                line = sharded_compare(
+                    f"{backend} D={world} {name}", recs[0]["view"],
+                    want[name], slack, truth, kappa if f32 else 1e-9)
+                emit({"phase": "sharded", "world": world, "backend": backend,
+                      "call": name, **line, "ranks": [{
+                          "seconds": rec["seconds"],
+                          "device_s": rec.get("device_s"),
+                          "nccl_s": rec.get("nccl_s"),
+                          "idle_share": rec.get("idle_share"),
+                          "rounds": rec["counts"]["rounds"],
+                          "gathers": rec["counts"]["gathers"],
+                          "gather_s": rec["counts"]["gather_s"],
+                          "bytes_per_gather": rec["bytes_per_gather"],
+                          "launches": rec["launches"],
+                          "routes": rec["routes"]} for rec in recs]})
+        emit({"phase": "sharded", "seconds": seconds, "cards": cards,
+              "worlds": [f"{b} D={w}" for w, b in results],
+              "launches": launches})
+        self._count(launches)
 
     def phase_attention(self):
         """The K7 path: mha_flash over one llama3-405b attention layer,

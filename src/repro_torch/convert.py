@@ -79,12 +79,25 @@ def _fields(cls) -> set:
     return {f.name for f in dataclasses.fields(cls)}
 
 
-def state_from_numpy(fields: dict, *, device="cuda"):
+def state_from_numpy(fields: dict, *, device="cuda", mesh=None,
+                     axis: str = "lanes"):
     """Build a ``LanczosState``, ``GQLState``, ``CoeffHistory``,
     ``BlockState`` or ``QuadState`` from a dict of numpy fields, picked by
     its keys. Nested states (``GQLState.lz``, ``QuadState.st``,
     ``QuadState.coeffs``) are dicts or already-built states;
-    ``QuadState.op`` is a port operator or a ``(kind, leaves)`` pair."""
+    ``QuadState.op`` is a port operator or a ``(kind, leaves)`` pair.
+
+    With ``mesh`` (a lane mesh) the fields are a global, padded (Kp,)-lane
+    ``QuadState``, such as the reference's sharded state, and the result
+    is this rank's shard of it (``sharded.shard_state``), which
+    ``resume_sharded`` continues."""
+    if mesh is not None:
+        from .core import sharded as _sharded
+        state = state_from_numpy(fields, device=device)
+        if not isinstance(state, _solver.QuadState):
+            raise ValueError("mesh= shards a QuadState; these fields make "
+                             f"a {type(state).__name__}")
+        return _sharded.shard_state(state, mesh, axis)
     dev = _ops.resolve_device(device)
     keys = set(fields)
 

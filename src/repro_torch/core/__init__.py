@@ -20,10 +20,13 @@ ridge_bounds}, loop_utils.tree_freeze, bounds.{bif_bounds_trace,
 BIFTrace, BIFBounds}, the applications dpp.{ChainState,
 GreedyMapResult, LogLikelihoodResult, greedy_map, log_likelihood,
 sample_dpp, sample_kdpp}, update.ChainFactor and
-double_greedy.{DGResult, double_greedy as run_double_greedy}.
+double_greedy.{DGResult, double_greedy as run_double_greedy}, and the
+lanes over a mesh sharded.{ShardedBIFSolver, solve_batch_sharded,
+judge_batch_sharded, judge_argmax_sharded, judge_kdpp_swap_batch_sharded}
+with operators.{lane_specs, shard_ops}.
 """
 from . import block, bounds, double_greedy, dpp, gql, lanczos, \
-    loop_utils, matfun, operators, solver, spectrum, trace, \
+    loop_utils, matfun, operators, sharded, solver, spectrum, trace, \
     update  # noqa: F401
 
 from .solver import ArgmaxResult, BIFSolver, JudgeResult, PairState, \
@@ -34,8 +37,11 @@ from .matfun import CoeffHistory, SpectralFn  # noqa: F401
 from .trace import TraceQuadResult, TraceQuadState, logdet_quad, \
     trace_quad  # noqa: F401
 from .operators import Dense, Jacobi, Masked, MatvecFn, Shifted, \
-    SparseBELL, SparseCOO, bell_from_dense, sparse_from_dense, \
-    stack_masks, stack_ops  # noqa: F401
+    SparseBELL, SparseCOO, bell_from_dense, lane_specs, shard_ops, \
+    sparse_from_dense, stack_masks, stack_ops  # noqa: F401
+from .sharded import ShardedBIFSolver, judge_argmax_sharded, \
+    judge_batch_sharded, judge_kdpp_swap_batch_sharded, \
+    solve_batch_sharded  # noqa: F401
 from .spectrum import SpectrumBounds, gershgorin_bounds, \
     lanczos_extremal, ridge_bounds  # noqa: F401
 from .bounds import BIFBounds, BIFTrace, bif_bounds_trace  # noqa: F401

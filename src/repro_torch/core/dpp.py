@@ -49,13 +49,6 @@ def _as_solver(solver: _solver.BIFSolver | None,
     return solver
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded lanes are ROADMAP.md Queue 1 item 4 "
-            "(multi-GPU lanes), not ported yet; pass mesh=None")
-
-
 class ChainStats(NamedTuple):
     steps: Tensor
     accepts: Tensor
@@ -247,6 +240,7 @@ def kdpp_step(op, state: ChainState, lam_min, lam_max, *,
               draws: KdppDraws, max_iters: int, exact: bool = False,
               batched: bool = True,
               solver: _solver.BIFSolver | None = None, mesh=None,
+              lane_axis: str = "lanes",
               chunk_iters: int | None = None) -> ChainState:
     """One swap move of the k-DPP chain (Alg. 6/7) with the draws
     ``draws`` (a ``KdppDraws``): remove v in Y, add u not in Y (each the
@@ -258,15 +252,21 @@ def kdpp_step(op, state: ChainState, lam_min, lam_max, *,
     ``chunk_iters`` runs the batched judge in ``resume_chunked`` rounds.
     With ``state.factor`` both BIFs come exactly off the factor of
     Y' = Y \\ {v}, and the factor carries across accepted swaps.
-    ``mesh`` raises ``NotImplementedError`` (not ported yet)."""
-    _no_mesh(mesh)
+    ``mesh`` (a lane mesh) puts the batched judge's two lanes on its
+    ranks (``judge_kdpp_swap_batch_sharded``)."""
     incremental = state.factor is not None
-    if incremental and (exact or chunk_iters is not None):
+    if incremental and (exact or mesh is not None
+                        or chunk_iters is not None):
         raise ValueError(
             "state.factor scores the swap exactly from the maintained "
-            "factor (no quadrature lanes run): exact/chunk_iters do not "
-            "apply; drop the factor to use those paths")
-    if chunk_iters is not None and (exact or not batched):
+            "factor (no quadrature lanes run): exact/mesh/chunk_iters do "
+            "not apply; drop the factor to use those paths")
+    if mesh is not None and (exact or not batched):
+        raise ValueError(
+            "mesh requires the batched driver: pass batched=True, "
+            "exact=False (the exact and pair drivers run single-device)")
+    if chunk_iters is not None and (exact or not batched
+                                    or mesh is not None):
         raise ValueError(
             "chunk_iters requires the single-device batched driver: pass "
             "batched=True, exact=False, mesh=None")
@@ -299,6 +299,11 @@ def kdpp_step(op, state: ChainState, lam_min, lam_max, *,
     elif exact:
         res = _exact_result(t < p * _exact_bif(op, m_wo, col_v)
                             - _exact_bif(op, m_wo, col_u))
+    elif batched and mesh is not None:
+        from . import sharded as _sharded
+        res = _sharded.judge_kdpp_swap_batch_sharded(
+            _as_solver(solver, max_iters), mop, col_u, col_v, t, p,
+            mesh=mesh, axis=lane_axis, lam_min=lam_min, lam_max=lam_max)
     elif batched:
         res = _as_solver(solver, max_iters).judge_kdpp_swap_batch(
             mop, col_u, col_v, t, p, lam_min=lam_min, lam_max=lam_max,
@@ -355,7 +360,7 @@ class GreedyMapResult(NamedTuple):
 def greedy_map(op, k: int, lam_min, lam_max, *, max_iters: int,
                exact: bool = False,
                solver: _solver.BIFSolver | None = None, mesh=None,
-               warm_start: bool = False,
+               lane_axis: str = "lanes", warm_start: bool = False,
                incremental: bool = False) -> GreedyMapResult:
     """Greedy MAP for the DPP (paper Alg. 4), batched over candidates:
     each step races every candidate's gain ``L_ii - u_i^T L_Y^-1 u_i`` as
@@ -368,9 +373,13 @@ def greedy_map(op, k: int, lam_min, lam_max, *, max_iters: int,
     round seeds every candidate with its exact current score (both
     bracket sides) and reads the winner's exact gain off the factor.
     Selections are the same every way; only iteration counts drop.
-    ``mesh`` raises ``NotImplementedError`` (not ported yet)."""
-    _no_mesh(mesh)
+    ``mesh`` splits the N candidate lanes over a lane mesh's ranks
+    (``judge_argmax_sharded``): the race sees every lane's bracket once a
+    round, and the selections stay those of one device."""
     quad = _as_solver(solver, max_iters)
+    if mesh is not None and exact:
+        raise ValueError("mesh requires the quadrature path: the exact "
+                         "scorer runs single-device (pass exact=False)")
     if incremental and exact:
         raise ValueError(
             "incremental=True maintains the exact factor to accelerate "
@@ -406,10 +415,15 @@ def greedy_map(op, k: int, lam_min, lam_max, *, max_iters: int,
                 # first decide check
                 ex = _update.gains(factor, d, cols)
                 prior = torch.minimum(prior, ex)
-            res = quad.judge_argmax(
-                _ops.Masked(op, mask), u, shift=d, scale=-1.0, valid=valid,
-                prior_upper=prior if use_prior else None, prior_lower=ex,
-                lam_min=lam_min, lam_max=lam_max)
+            race = dict(shift=d, scale=-1.0, valid=valid,
+                        prior_upper=prior if use_prior else None,
+                        prior_lower=ex, lam_min=lam_min, lam_max=lam_max)
+            if mesh is None:
+                res = quad.judge_argmax(_ops.Masked(op, mask), u, **race)
+            else:
+                res = quad.judge_argmax_sharded(_ops.Masked(op, mask), u,
+                                                mesh=mesh, axis=lane_axis,
+                                                **race)
             idx, ok = res.index, res.certified
             gain = ex[idx] if incremental \
                 else 0.5 * (res.lower[idx] + res.upper[idx])
@@ -452,7 +466,8 @@ class LogLikelihoodResult(NamedTuple):
 def log_likelihood(op, mask, lam_min, lam_max, *, max_iters: int = 64,
                    num_probes: int | None = None,
                    solver: _solver.BIFSolver | None = None, key=None,
-                   probes=None, mesh=None, rtol: float = 1e-6,
+                   probes=None, mesh=None, lane_axis: str = "lanes",
+                   rtol: float = 1e-6,
                    atol: float = 1e-8) -> LogLikelihoodResult:
     """Bracketed L-ensemble log-likelihood of the set ``Y`` = ``mask``,
     ``logdet(L_Y) - logdet(L + I)``, both terms ``trace_quad`` with
@@ -464,11 +479,10 @@ def log_likelihood(op, mask, lam_min, lam_max, *, max_iters: int = 64,
     ``num_probes``, the terms draw their Hutchinson probes from the
     port's keyed stream, ``key`` for the first and ``key + 1`` for the
     second, or take them from ``probes``, a pair of (P, N) tables (the
-    first term's and the normalizer's). ``mesh`` raises
-    ``NotImplementedError`` (not ported yet)."""
+    first term's and the normalizer's). ``mesh`` splits both terms'
+    probe lanes over a lane mesh's ranks (``trace_quad(mesh=)``)."""
     from . import trace as _trace
 
-    _no_mesh(mesh)
     d = op.diag()
     mask = torch.as_tensor(mask, device=d.device)
     quad = solver if solver is not None else _solver.BIFSolver.create(
@@ -483,12 +497,12 @@ def log_likelihood(op, mask, lam_min, lam_max, *, max_iters: int = 64,
     ld_y = _trace.trace_quad(
         _ops.Masked(op, mask), "log", num_probes, solver=quad,
         lam_min=min(lam_min, 1.0), lam_max=max(lam_max, 1.0),
-        key=keys[0], probes=pz[0])
+        key=keys[0], probes=pz[0], mesh=mesh, lane_axis=lane_axis)
     one = torch.ones((), dtype=d.dtype, device=d.device)
     ld_n = _trace.trace_quad(
         _ops.Shifted(op, one), "log", num_probes, solver=quad,
         lam_min=lam_min + 1.0, lam_max=lam_max + 1.0, key=keys[1],
-        probes=pz[1])
+        probes=pz[1], mesh=mesh, lane_axis=lane_axis)
     return LogLikelihoodResult(
         lower=ld_y.lower - ld_n.upper,
         upper=ld_y.upper - ld_n.lower,

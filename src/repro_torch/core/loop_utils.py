@@ -36,3 +36,22 @@ def tree_freeze(new, old, frozen: torch.Tensor):
                                 frozen)
             for f in dataclasses.fields(new) if f.init})
     raise TypeError(f"tree_freeze: unsupported leaf type {type(new).__name__}")
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` to the matching tensor leaves of (named) tuples and
+    dataclasses of tensors; None stays None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, tuple):
+        leaves = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(first)(*leaves) if hasattr(first, "_fields") \
+            else tuple(leaves)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(first) if f.init})
+    raise TypeError(f"tree_map: unsupported leaf {type(first).__name__}")

@@ -533,6 +533,88 @@ def stack_masks(base, masks) -> Masked:
     return Masked(base, masks)
 
 
+# ---------------------------------------------------------------------------
+# Lane sharding (DESIGN.md Sec. 7)
+
+# Rank of each tensor field on an UNBATCHED operator. A leaf with one more
+# dim carries a leading lane axis (a stack_ops / stack_masks stack) and is
+# split over the lane mesh; a base-rank leaf is the shared problem data
+# and every rank keeps it whole. Dispatched on the type, not on shapes,
+# which would misfire when K == N (greedy MAP runs N lanes against an
+# (N, N) base matrix).
+_LANE_BASE_RANK = {
+    Dense: {"a": 2},
+    SparseCOO: {"rows": 1, "cols": 1, "vals": 1, "diag_vals": 1},
+    SparseBELL: {"data": 4, "cols": 2, "diag_vals": 1},
+    Masked: {"mask": 1},
+    Shifted: {"sigma": 0},
+    Jacobi: {"inv_sqrt_diag": 1},
+    MatvecFn: {"diag_vals": 1},
+}
+
+_LANE_WRAPPERS = (Masked, Shifted, Jacobi)
+
+
+def _lane_spec_for(leaf, base_rank: int) -> str:
+    ndim = leaf.ndim if isinstance(leaf, torch.Tensor) else np.ndim(leaf)
+    extra = ndim - base_rank
+    if extra == 0:
+        return "shared"
+    if extra == 1:
+        return "stacked"
+    raise ValueError(
+        f"operator leaf has {extra} leading lane dims (shape "
+        f"{tuple(np.shape(leaf))}, base rank {base_rank}); the sharded "
+        f"driver supports exactly one lane axis")
+
+
+def lane_specs(op) -> dict:
+    """Each tensor field of ``op`` as 'stacked' (one leading lane dim
+    over the operator's unbatched rank: split over the lane mesh) or
+    'shared' (kept whole on every rank), a wrapper's ``base`` as its own
+    dict of the same kind."""
+    cls = type(op)
+    if cls not in _LANE_BASE_RANK:
+        raise TypeError(f"lane_specs does not know operator type "
+                        f"{cls.__name__}")
+    specs = {name: _lane_spec_for(getattr(op, name), rank)
+             for name, rank in _LANE_BASE_RANK[cls].items()}
+    if cls in _LANE_WRAPPERS:
+        specs["base"] = lane_specs(op.base)
+    return specs
+
+
+def map_stacked(op, fn, specs: dict | None = None):
+    """``op`` with ``fn`` applied to every stacked leaf (shared leaves
+    and static fields as they are)."""
+    specs = lane_specs(op) if specs is None else specs
+    fields = {name: fn(getattr(op, name))
+              for name, spec in specs.items()
+              if name != "base" and spec == "stacked"}
+    if "base" in specs:
+        fields["base"] = map_stacked(op.base, fn, specs["base"])
+    return dataclasses.replace(op, **fields) if fields else op
+
+
+def shard_ops(op, mesh, axis: str = "lanes"):
+    """This rank's operator on a lane mesh: every stacked leaf cut to the
+    rank's contiguous block of lanes, shared leaves whole. The lane count
+    must divide by the ranks (the sharded driver pads it first)."""
+    from ..launch.mesh import lane_rank
+
+    ndev, rank = lane_rank(mesh, axis)
+
+    def local(leaf):
+        k = leaf.shape[0]
+        if k % ndev:
+            raise ValueError(f"{k} lanes do not split over {ndev} ranks; "
+                             f"pad the lane axis to a multiple first")
+        kd = k // ndev
+        return leaf[rank * kd:(rank + 1) * kd]
+
+    return map_stacked(op, local)
+
+
 def configure_backend(op, backend: str, interpret: bool | None):
     """Rebind the execution mode of every ``SparseBELL`` inside ``op``
     (walking Masked/Shifted/Jacobi wrappers) to the solver's backend."""

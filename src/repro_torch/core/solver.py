@@ -28,7 +28,8 @@ the block recurrence of core/block.py on (..., b, N) probe blocks,
 bracketing ``tr B^T f(A) B`` per lane; its operator application is one
 ``matvec_mrhs`` per iteration (kernel K5 for SparseBELL on 'pallas').
 
-Not ported yet: the sharded drivers; see ROADMAP.md.
+``solve_batch_sharded`` / ``judge_batch_sharded`` / ``judge_argmax_sharded``
+split the lanes over the ranks of a lane mesh (core/sharded.py).
 """
 from __future__ import annotations
 
@@ -770,6 +771,40 @@ class BIFSolver:
                             _first_argmax(mid)).to(torch.int32)
         return ArgmaxResult(index=index, certified=certified,
                             iterations=res.iterations, lower=slo, upper=shi)
+
+    # -- lanes over a mesh (core/sharded.py, DESIGN.md Sec. 7) ---------------
+
+    def solve_batch_sharded(self, op, u: Tensor, decide=None, *, mesh,
+                            axis: str = "lanes", lam_min=None, lam_max=None,
+                            probe=None, decide_args=()) -> SolveResult:
+        """``solve_batch`` with the K lanes split over ``mesh``'s ranks;
+        per-lane outcomes are those of the single-device driver."""
+        from . import sharded as _sharded
+        return _sharded.solve_batch_sharded(
+            self, op, u, decide, mesh=mesh, axis=axis, lam_min=lam_min,
+            lam_max=lam_max, probe=probe, decide_args=decide_args)
+
+    def judge_batch_sharded(self, op, u: Tensor, t, *, mesh,
+                            axis: str = "lanes", lam_min=None, lam_max=None,
+                            probe=None) -> JudgeResult:
+        """``judge_batch`` over a lane mesh."""
+        from . import sharded as _sharded
+        return _sharded.judge_batch_sharded(
+            self, op, u, t, mesh=mesh, axis=axis, lam_min=lam_min,
+            lam_max=lam_max, probe=probe)
+
+    def judge_argmax_sharded(self, op, u: Tensor, *, mesh,
+                             axis: str = "lanes", shift=None, scale=None,
+                             valid=None, prior_upper=None, prior_lower=None,
+                             lam_min=None, lam_max=None,
+                             probe=None) -> ArgmaxResult:
+        """``judge_argmax`` over a lane mesh: every rank races all lanes'
+        brackets, gathered once a round."""
+        from . import sharded as _sharded
+        return _sharded.judge_argmax_sharded(
+            self, op, u, mesh=mesh, axis=axis, shift=shift, scale=scale,
+            valid=valid, prior_upper=prior_upper, prior_lower=prior_lower,
+            lam_min=lam_min, lam_max=lam_max, probe=probe)
 
     # -- the two-system judges -----------------------------------------------
 

@@ -135,14 +135,17 @@ def trace_quad(op, fn: str = "log", num_probes: Optional[int] = None, *,
     state adds whole blocks. The CI is over the per-block means (block
     midpoint / b). In exact mode the last block zero-pads past N.
 
+    ``mesh`` (a lane mesh, ``launch.make_lane_mesh``) splits each chunk's
+    probe lanes over its ranks (``solve_batch_sharded`` on ``lane_axis``);
+    every rank returns the same result.
+
     ``lam_min``/``lam_max`` must bound the operator's spectrum. The trace
     is of the operator as given: for a ``Masked`` operator the identity
     block contributes ``(N - |Y|) * f(1)``, zero for f = log.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded trace is ROADMAP.md Queue 1 item 6 "
-            "(multi-GPU lanes), not ported yet; pass mesh=None")
+        from ..launch.mesh import lane_rank
+        lane_rank(mesh, lane_axis)   # a lane mesh, or raise now
     b = int(block_size)
     if b < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -229,7 +232,14 @@ def trace_quad(op, fn: str = "log", num_probes: Optional[int] = None, *,
         us = _probes(key, probes, pos, stop, n, dtype, device, exact)
         if b > 1:
             us = us.reshape((stop - pos) // b, b, n)
-        res = solver.solve_batch(op, us, lam_min=lam_min, lam_max=lam_max)
+        if mesh is None:
+            res = solver.solve_batch(op, us, lam_min=lam_min,
+                                     lam_max=lam_max)
+        else:
+            res = solver.solve_batch_sharded(op, us, mesh=mesh,
+                                             axis=lane_axis,
+                                             lam_min=lam_min,
+                                             lam_max=lam_max)
         done_lo.append(res.lower.cpu().numpy())
         done_hi.append(res.upper.cpu().numpy())
         done_it.append(res.iterations.cpu().numpy())

@@ -27,9 +27,17 @@ request never shares storage with the pool; a resubmitted partial goes
 back to the slot it was banked from when that slot is free
 (``BIFEngine._place``), where it resumes bit-exactly on the card too.
 
-Not ported yet: ``mesh=`` (the sharded pool step and flush) raises
-``NotImplementedError`` until the multi-GPU lanes land (ROADMAP Queue 1
-item 4), and the LLM ``Engine`` / ``Request`` wait for the LLM substrate.
+With ``mesh=`` (a lane mesh, ``launch.make_lane_mesh``) the pool's lanes
+split over the mesh's ranks (core/sharded.py). Every rank runs this same
+host scheduler on the same requests: admission, ``_place``, retirement
+and ``stats()`` counters agree on every rank, because every decision is
+made from gathered values. Each rank uploads and steps only its own
+slots; a round's per-lane results and the scheduler's clock are gathered
+once, and a banked partial's lane state is broadcast from the rank that
+holds it, so any rank can resume it in any slot.
+
+Not ported yet: the LLM ``Engine`` / ``Request`` wait for the LLM
+substrate.
 """
 from __future__ import annotations
 
@@ -43,8 +51,10 @@ import torch
 
 from ..core import matfun as core_matfun
 from ..core import operators as core_ops
+from ..core import sharded as core_sharded
 from ..core import spectrum as core_spectrum
 from ..core.loop_utils import tree_freeze
+from ..core.loop_utils import tree_map as _tree_map
 from ..core.solver import BIFSolver, QuadState, _bracket2
 from ..obs import metrics as obs_metrics
 from ..obs import registry as _obs_registry
@@ -146,25 +156,6 @@ def _note_signature(name: str, *args) -> None:
     _obs_registry.count(name)
 
 
-def _tree_map(fn, *trees):
-    """Apply ``fn`` to the matching tensor leaves of (named) tuples and
-    dataclasses of tensors; None stays None."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    if isinstance(first, tuple):
-        leaves = [_tree_map(fn, *xs) for xs in zip(*trees)]
-        return type(first)(*leaves) if hasattr(first, "_fields") \
-            else tuple(leaves)
-    if dataclasses.is_dataclass(first):
-        return dataclasses.replace(first, **{
-            f.name: _tree_map(fn, *(getattr(t, f.name) for t in trees))
-            for f in dataclasses.fields(first) if f.init})
-    raise TypeError(f"_tree_map: unsupported leaf {type(first).__name__}")
-
-
 def _host(x) -> np.ndarray:
     """A request field as a host array (a tensor is copied off its
     device)."""
@@ -236,34 +227,79 @@ def _lane(tree, i: int):
     return _tree_map(lambda leaf: leaf[i].clone(), tree)
 
 
-def _pool_step_run(solver, state, ts, has_t, it_cap, *, n):
+def _share_lane(tree, i: int, mesh, axis: str):
+    """Lane ``i`` (a global pool slot) of a rank-local pool state, on
+    every rank: the rank that holds it packs its leaves into one f64
+    vector (exact for the pool's floats, flags and int32 counts), which
+    is broadcast and unpacked in each leaf's dtype and shape."""
+    leaves = []
+    kd = tree[0].it.shape[0]
+    owner, j = divmod(i, kd)
+    _tree_map(lambda leaf: leaves.append(leaf[j]) or leaf, tree)
+    flat = core_sharded.broadcast_from(torch.cat(
+        [x.reshape(-1).to(torch.float64) for x in leaves]), owner, mesh,
+        axis)
+    parts = iter(torch.split(flat, [x.numel() for x in leaves]))
+    return _tree_map(lambda leaf: next(parts).reshape(leaf.shape[1:]).to(
+        leaf.dtype), tree)
+
+
+def _pool_step_run(solver, state, ts, has_t, it_cap, *, n, mesh=None,
+                   axis: str = "lanes"):
     """One scheduler round: advance the pool by at most ``n`` quadrature
-    iterations through the resumable runtime (``BIFSolver.step_n``),
+    iterations through the resumable runtime (``BIFSolver.step_n``, or
+    ``step_n_sharded`` on the rank's slots when the engine is mesh-bound),
     freezing lanes the moment they resolve or exhaust their per-request
     ``it_cap`` budget. Returns the stepped state plus everything the host
-    scheduler needs to retire lanes."""
+    scheduler needs to retire lanes, over the whole pool (on a mesh, the
+    per-lane values are gathered once)."""
     _note_signature("serve.engine.pool_step", solver.config, state, ts,
-                    has_t, it_cap, n)
-    state = solver.step_n(
-        state, n, lambda lo, hi: _mixed_decide(solver, lo, hi, ts, has_t),
-        it_cap=it_cap)
+                    has_t, it_cap, n, mesh)
+    if mesh is None:
+        state = solver.step_n(
+            state, n, lambda lo, hi: _mixed_decide(solver, lo, hi, ts,
+                                                   has_t),
+            it_cap=it_cap)
+    else:
+        state = core_sharded.step_n_sharded(
+            solver, state, n,
+            lambda lo, hi, ts_, ht_: _mixed_decide(solver, lo, hi, ts_,
+                                                   ht_),
+            decide_args=(ts, has_t), it_cap=it_cap, mesh=mesh, axis=axis)
     lo, hi = _bracket2(state.st, state.coeffs, state.lam_min,
                        state.lam_max)
+    done, its = state.st.done, state.st.it
+    if mesh is not None:
+        lo, hi, done, its = core_sharded.gather_lanes(torch.stack(
+            [lo.to(torch.float64), hi.to(torch.float64),
+             done.to(torch.float64), its.to(torch.float64)], -1),
+            mesh, axis).T.contiguous()
+        lo, hi = lo.to(state.lam_min.dtype), hi.to(state.lam_min.dtype)
+        done, its = done.to(torch.bool), its.to(torch.int32)
     resolved = _mixed_decide(solver, lo, hi, ts, has_t)
     decision = BIFSolver.threshold_decision(ts, lo, hi)
-    return state, lo, hi, resolved, decision, state.st.done, state.st.it
+    return state, lo, hi, resolved, decision, done, its
 
 
-def _flush_run(solver, op, us, masks, ts, has_t, lam_min, lam_max):
+def _flush_run(solver, op, us, masks, ts, has_t, lam_min, lam_max, *,
+               mesh=None, axis: str = "lanes"):
     """ONE shared lockstep flush driver for every BIFEngine: a whole chunk
-    as lanes of one ``solve_batch`` over the stacked masks."""
+    as lanes of one ``solve_batch`` over the stacked masks
+    (``solve_batch_sharded`` on a mesh)."""
     _note_signature("serve.engine.flush", solver.config, op, us, masks, ts,
-                    has_t, lam_min, lam_max)
+                    has_t, lam_min, lam_max, mesh)
     mop = core_ops.Masked(op, masks)
-    res = solver.solve_batch(
-        mop, us, decide=lambda lo, hi: _mixed_decide(solver, lo, hi, ts,
-                                                     has_t),
-        lam_min=lam_min, lam_max=lam_max)
+    if mesh is None:
+        res = solver.solve_batch(
+            mop, us, decide=lambda lo, hi: _mixed_decide(solver, lo, hi,
+                                                         ts, has_t),
+            lam_min=lam_min, lam_max=lam_max)
+    else:
+        res = core_sharded.solve_batch_sharded(
+            solver, mop, us,
+            lambda lo, hi, ts_, ht_: _mixed_decide(solver, lo, hi, ts_, ht_),
+            decide_args=(ts, has_t), mesh=mesh, axis=axis, lam_min=lam_min,
+            lam_max=lam_max)
     decision = BIFSolver.threshold_decision(ts, res.lower, res.upper)
     return (res.lower, res.upper, decision,
             _mixed_decide(solver, res.lower, res.upper, ts, has_t),
@@ -291,19 +327,27 @@ class BIFEngine:
     iteration one and cost only their share of the stacked matvec.
 
     The pool lives on the operator's device, in the dtype of its
-    diagonal. ``mesh`` raises ``NotImplementedError`` (not ported yet).
+    diagonal. With ``mesh`` set (a 1-D lane mesh from
+    ``launch.make_lane_mesh``) ``max_batch`` is rounded up to a multiple
+    of the ranks and the pool's slots split over them; every rank must
+    submit the same requests and flush together (see the module
+    docstring).
     """
 
     def __init__(self, op, *, solver: BIFSolver | None = None,
                  max_batch: int = 64, lam_min: float | None = None,
                  lam_max: float | None = None, mesh=None,
-                 chunk_iters: int = 8, metrics: bool = True,
-                 convergence_log=None):
+                 lane_axis: str = "lanes", chunk_iters: int = 8,
+                 metrics: bool = True, convergence_log=None):
+        self.mesh, self.lane_axis = mesh, lane_axis
+        max_batch = int(max_batch)
+        self._mine = slice(None)     # this rank's pool slots
         if mesh is not None:
-            raise NotImplementedError(
-                "BIFEngine(mesh=...) (the sharded pool step and flush) is "
-                "not ported yet (ROADMAP Queue 1 item 4); serve on one "
-                "device")
+            from ..launch.mesh import lane_rank
+            ndev, rank = lane_rank(mesh, lane_axis)
+            max_batch = -(-max_batch // ndev) * ndev
+            kd = max_batch // ndev
+            self._mine = slice(rank * kd, (rank + 1) * kd)
         self.op = op
         self.solver = solver if solver is not None \
             else BIFSolver.create(max_iters=64, rtol=1e-3)
@@ -319,7 +363,7 @@ class BIFEngine:
         # the pool)
         r = self.solver.config.decide_every
         self.chunk_iters = -(-max(1, int(chunk_iters)) // r) * r
-        self.max_batch = int(max_batch)
+        self.max_batch = max_batch
         if lam_min is None or lam_max is None:
             # one-time certified interval, valid for every request mask
             # by interlacing (DESIGN.md Sec. 3.2)
@@ -346,7 +390,8 @@ class BIFEngine:
         def run(us, masks, ts, has_t):
             return _flush_run(
                 self.solver, self.op, us, masks, ts, has_t,
-                self._scalar(self.lam_min), self._scalar(self.lam_max))
+                self._scalar(self.lam_min), self._scalar(self.lam_max),
+                mesh=self.mesh, axis=self.lane_axis)
 
         self._run = run
 
@@ -357,6 +402,15 @@ class BIFEngine:
         """A host array as a NEW tensor on the pool's device (a copy even
         on the CPU, so later host writes never reach the pool)."""
         return torch.tensor(x, device=self._device)
+
+    def _now(self) -> float:
+        """The scheduler's clock: ``time.monotonic()``, on a mesh the
+        latest of the ranks' readings (one gather), so that every rank
+        retires on the same deadlines."""
+        now = time.monotonic()
+        if self.mesh is None:
+            return now
+        return core_sharded.agree_clock(now, self.mesh, self.lane_axis)
 
     def submit(self, req: BIFRequest) -> BIFRequest:
         """Queue one request. Shapes are validated here so a malformed
@@ -491,7 +545,8 @@ class BIFEngine:
     def _step(self, state, ts, has_t, it_cap):
         """One pool decision round (seam for tests / fault injection)."""
         return _pool_step_run(self.solver, state, ts, has_t, it_cap,
-                              n=self.chunk_iters)
+                              n=self.chunk_iters, mesh=self.mesh,
+                              axis=self.lane_axis)
 
     def flush(self, *, mode: str = "continuous") -> List[BIFRequest]:
         """Serve every queued request; returns them in submission order
@@ -550,6 +605,12 @@ class BIFEngine:
         state = None
         lam_min = self._scalar(self.lam_min)
         lam_max = self._scalar(self.lam_max)
+        # this rank's slots (the whole pool on one device); on a mesh the
+        # clock of a round's admission is the one its last retirement
+        # agreed on
+        mine = self._mine
+        local = range(p)[mine]
+        clock = None
 
         try:
             while pending or any(r is not None for r in slots):
@@ -557,7 +618,8 @@ class BIFEngine:
                 fresh = np.zeros((p,), bool)
                 warm = []
                 dirty = state is None
-                now = time.monotonic()
+                now = clock if self.mesh is not None and clock is not None \
+                    else self._now()
                 free = [i for i in range(p) if slots[i] is None]
                 admitted = []
                 while pending and len(admitted) < len(free):
@@ -605,29 +667,34 @@ class BIFEngine:
                     # is nothing to step
                     break
                 if dirty:
-                    if state is None or fresh.any():
+                    if state is None or fresh[mine].any():
                         # fresh lanes seed from a POOL-SHAPED init on
-                        # purpose: per-lane inits would change the matvec
-                        # shape, and gemv-vs-gemm rounding can flip
-                        # marginal iteration counts against the lockstep
-                        # baseline (the Sec. 6.1 caveat)
+                        # purpose (the rank's slots on a mesh): per-lane
+                        # inits would change the matvec shape, and
+                        # gemv-vs-gemm rounding can flip marginal
+                        # iteration counts against the lockstep baseline
+                        # (the Sec. 6.1 caveat)
                         state = _pool_admit_run(
                             solver, self.op,
                             None if state is None else state.st,
                             None if state is None else state.coeffs,
-                            self._upload(us), self._upload(masks),
-                            self._upload(fresh),
-                            self._upload(fnidx) if tracking else None,
+                            self._upload(us[mine]), self._upload(masks[mine]),
+                            self._upload(fresh[mine]),
+                            self._upload(fnidx[mine]) if tracking else None,
                             lam_min, lam_max)
                     else:
-                        # warm-only round: every admitted lane scatters a
-                        # banked state in, so skip the pool init matvec
-                        # and just rebind the masks on the pool operator
+                        # warm-only round (for this rank): every admitted
+                        # lane scatters a banked state in, so skip the
+                        # pool init matvec and just rebind the masks on
+                        # the pool operator
                         state = state._replace(op=dataclasses.replace(
-                            state.op, mask=self._upload(masks)))
+                            state.op, mask=self._upload(masks[mine])))
                     for i, lane_sc in warm:
+                        if i not in local:
+                            continue        # another rank's slot
                         st_new, coeffs_new = _pool_scatter_run(
-                            (state.st, state.coeffs), lane_sc, i)
+                            (state.st, state.coeffs), lane_sc,
+                            i - local.start)
                         state = state._replace(st=st_new,
                                                coeffs=coeffs_new)
 
@@ -645,7 +712,7 @@ class BIFEngine:
                     sp.block_until_ready((lo, hi, res, dec, done, its))
                 lo_h, hi_h, res_h, dec_h, done_h, it_h = _read_back(
                     lo, hi, res, dec, done, its)
-                now = time.monotonic()
+                now = clock = self._now()
                 if self.convergence_log is not None:
                     # host-side copies the retire loop reads anyway:
                     # logging cannot perturb the round
@@ -668,17 +735,25 @@ class BIFEngine:
                     r.iterations = int(it_h[i])
                     if not resolved and int(it_h[i]) < max_iters:
                         # interrupted with headroom left: bank a per-lane
-                        # QuadState (clones, never views of the pool) so
-                        # resubmission resumes bit-exactly, plus the
-                        # premasked query, so submit() can reject a
-                        # mutated u/mask at the door
+                        # QuadState (clones, never views of the pool; on
+                        # a mesh every rank receives the lane from the
+                        # rank that holds it) so resubmission resumes
+                        # bit-exactly, plus the premasked query, so
+                        # submit() can reject a mutated u/mask at the door
+                        if self.mesh is None:
+                            lane_st = _lane(state.st, i)
+                            lane_coeffs = _lane(state.coeffs, i)
+                        else:
+                            lane_st, lane_coeffs = _share_lane(
+                                (state.st, state.coeffs), i, self.mesh,
+                                self.lane_axis)
                         r.state = QuadState(
                             op=dataclasses.replace(
-                                state.op, mask=state.op.mask[i].clone()),
-                            st=_lane(state.st, i),
+                                state.op, mask=self._upload(masks[i])),
+                            st=lane_st,
                             lam_min=state.lam_min, lam_max=state.lam_max,
                             basis=None, step=state.step,
-                            coeffs=_lane(state.coeffs, i))
+                            coeffs=lane_coeffs)
                         r._banked_query = us[i].copy()
                         r._banked_slot = i
                     else:

@@ -14,8 +14,10 @@ The rankers build their kernel operator on ``device`` (the card by
 default, as ``convert.operator_from_numpy``); pooling and the kernel
 itself are numpy, as in the reference. ``select_diverse_blocks`` takes
 its Alg. 8 uniforms from a ``torch.Generator`` seeded with ``seed``, or
-from ``uniforms`` (a table or a generator). ``mesh=`` raises
-``NotImplementedError`` until the multi-GPU lanes land.
+from ``uniforms`` (a table or a generator). ``mesh=`` (a lane mesh,
+``launch.make_lane_mesh``) goes to the ranker's ``BIFEngine``, which
+splits its pool over the mesh's ranks; every rank calls the ranker with
+the same keys and gets the same ranking.
 """
 from __future__ import annotations
 
@@ -134,7 +136,7 @@ def rank_blocks(keys: np.ndarray, *, block: int = 128, ridge: float = 1e-3,
     land on one flush-driver signature across calls whose ``n`` falls in
     the same bucket (pinned in tests via
     ``serve.engine.flush_trace_count``). The kernel operator lives on
-    ``device``. ``mesh`` raises ``NotImplementedError`` (not ported yet).
+    ``device``; ``mesh`` splits the engine's pool over a lane mesh.
     The spectral interval is ``[ridge / 2, Gershgorin max]`` (``_lam_min``).
 
     Returns ``(order, stats)`` with ``order`` the block indices most-

@@ -969,3 +969,149 @@ def test_span_block_until_ready_synchronises_only_while_live(cuda,
     finally:
         obs.spans.set_enabled(False)
         obs.spans.reset()
+
+
+# -- lanes over a mesh on the card (core/sharded.py) -------------------------
+
+def _sharded_problem(n=500, k=16, seed=71):
+    a = _spd(n, seed, kappa=50.0)
+    us = np.random.default_rng(seed + 1).standard_normal((k, n))
+    w = np.linalg.eigvalsh(a)
+    return a, us, dict(lam_min=float(w[0] * 0.99),
+                       lam_max=float(w[-1] * 1.01))
+
+
+@pytest.fixture
+def nccl_unit_mesh(cuda, tmp_path):
+    """An NCCL group of one in this process and its lane mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import init_lane_group, make_lane_mesh
+    init_lane_group("nccl", 0, 1, store=dist.FileStore(
+        str(tmp_path / "store"), 1), timeout_s=60.0)
+    try:
+        yield make_lane_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend,kernel", [("pallas", "gql_update"),
+                                            ("fused", "fused_step_dense")])
+def test_nccl_unit_world_matches_one_device(nccl_unit_mesh, backend,
+                                            kernel):
+    """At D = 1 on NCCL the sharded drive runs the single-device shapes:
+    the same bits, one gather a round plus two, the kernel launched."""
+    from repro_torch.core import sharded
+    a, us, lam = _sharded_problem()
+    op = Dense(torch.tensor(a, device="cuda"))
+    u = torch.tensor(us, device="cuda")
+    s = BIFSolver.create(max_iters=120, rtol=1e-6, backend=backend)
+    want = s.solve_batch(op, u, **lam)
+    sharded.reset_counts()
+    before = ops.LAUNCHES[kernel]
+    got = s.solve_batch_sharded(op, u, mesh=nccl_unit_mesh, **lam)
+    assert ops.LAUNCHES[kernel] > before
+    c = sharded.COUNTS
+    assert c["gathers"] == c["rounds"] + 2 and c["rounds"] > 0, c
+    for f in ("lower", "upper", "iterations", "certified", "converged"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    am = s.judge_argmax_sharded(op, u, mesh=nccl_unit_mesh, **lam)
+    aw = s.judge_argmax(op, u, **lam)
+    assert int(am.index) == int(aw.index) and bool(am.certified)
+
+
+def _gloo_rank(rank, world, store, out):
+    """One gloo rank sharing cuda:0 (test_two_gloo_ranks_share_the_card):
+    a sharded 'pallas' solve, its result and collective counts pickled to
+    ``out``."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.core import sharded
+    from repro_torch.launch import init_lane_group, make_lane_mesh
+    init_lane_group("gloo", rank, world, store=dist.FileStore(store, world),
+                    timeout_s=60.0)
+    try:
+        mesh = make_lane_mesh()
+        a, us, lam = _sharded_problem()
+        s = BIFSolver.create(max_iters=120, rtol=1e-6, backend="pallas")
+        before = ops.LAUNCHES["gql_update"]
+        sharded.reset_counts()
+        res = s.solve_batch_sharded(Dense(torch.tensor(a, device="cuda")),
+                                    torch.tensor(us, device="cuda"),
+                                    mesh=mesh, **lam)
+        rec = {f: getattr(res, f).cpu().numpy() for f in (
+            "lower", "upper", "iterations", "certified")}
+        rec.update(counts=dict(sharded.COUNTS),
+                   launches=ops.LAUNCHES["gql_update"] - before)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out}{rank}.pkl", "wb") as f:
+        pickle.dump(rec, f)
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (the round's scalars through host memory):
+    each launches K1 on its lanes, pays one gather a round plus two, and
+    returns the single-device outcome (iterations within 1, the same
+    certification, brackets around each other within the rtol)."""
+    import multiprocessing as mp
+    import pickle
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(
+        r, 2, str(tmp_path / "store"), str(tmp_path / "rank")))
+        for r in range(2)]
+    for q in procs:
+        q.start()
+    for q in procs:
+        q.join(120.0)
+    alive = [q for q in procs if q.is_alive()]
+    for q in alive:
+        q.kill()
+    assert not alive and [q.exitcode for q in procs] == [0, 0]
+    recs = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            recs.append(pickle.load(f))
+    a, us, lam = _sharded_problem()
+    want = BIFSolver.create(max_iters=120, rtol=1e-6, backend="pallas") \
+        .solve_batch(Dense(torch.tensor(a, device=cuda)),
+                     torch.tensor(us, device=cuda), **lam)
+    for rec in recs:
+        c = rec["counts"]
+        assert rec["launches"] > 0
+        assert c["gathers"] == c["rounds"] + 2 and c["rounds"] > 0, c
+        for f in ("lower", "upper", "iterations", "certified"):
+            np.testing.assert_array_equal(rec[f], recs[0][f])
+    it_w = want.iterations.cpu().numpy()
+    assert np.abs(recs[0]["iterations"] - it_w).max() <= 1
+    np.testing.assert_array_equal(recs[0]["certified"],
+                                  want.certified.cpu().numpy())
+    np.testing.assert_allclose(recs[0]["lower"], want.lower.cpu().numpy(),
+                               rtol=1e-6)
+
+
+def test_rank_local_engine_flush_on_the_card(nccl_unit_mesh):
+    """BIFEngine(mesh=) at D = 1: the pool's slots are the rank's, each
+    round's per-lane results and the clock are gathered, and the flush
+    serves the single-device engine's outcomes bit for bit."""
+    from repro_torch.core import sharded
+    from repro_torch.serve import BIFEngine
+    a, reqs, lam = _engine_traffic()
+    sv = BIFSolver.create(max_iters=220, rtol=1e-6, backend="pallas")
+    runs = []
+    for mesh in (None, nccl_unit_mesh):
+        sharded.reset_counts()
+        eng = BIFEngine(Dense(torch.tensor(a, device="cuda")), solver=sv,
+                        max_batch=64, chunk_iters=8, mesh=mesh, **lam)
+        sub = [eng.submit(r()) for r in reqs]
+        out = eng.flush()
+        assert len(out) == len(sub) and all(x is y for x, y in zip(out, sub))
+        runs.append((sub, dict(sharded.COUNTS), eng.stats()["counters"]))
+    (one, c1, s1), (mesh, c2, s2) = runs
+    assert c1["gathers"] == 0 and c2["clocks"] > 0 and c2["rounds"] > 0
+    assert c2["gathers"] == c2["boundaries"] + c2["finalizes"] + c2["clocks"]
+    assert s1 == s2
+    for i, (g, w) in enumerate(zip(mesh, one)):
+        assert (g.decision, g.certified, g.resolved, g.iterations, g.lower,
+                g.upper) == (w.decision, w.certified, w.resolved,
+                             w.iterations, w.lower, w.upper), i

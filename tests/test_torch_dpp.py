@@ -223,14 +223,15 @@ def test_chain_arguments_are_checked(setup):
                       max_iters=8,
                       solver=T.BIFSolver.create(max_iters=8, fn="log"))
     dk = tdpp.KdppDraws(torch.zeros(N), torch.zeros(N), torch.tensor(0.5))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh requires the batched"):
         tdpp.kdpp_step(op, tdpp.init_chain(init), lmn, lmx, draws=dk,
-                       max_iters=8, mesh=object())
+                       max_iters=8, batched=False, mesh=object())
     with pytest.raises(ValueError, match="chunk_iters"):
         tdpp.kdpp_step(op, tdpp.init_chain(init), lmn, lmx, draws=dk,
                        max_iters=8, batched=False, chunk_iters=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.greedy_map(op, 2, lmn, lmx, max_iters=8, mesh=object())
+    with pytest.raises(ValueError, match="mesh requires the quadrature"):
+        T.greedy_map(op, 2, lmn, lmx, max_iters=8, exact=True,
+                     mesh=object())
     with pytest.raises(ValueError, match="incremental"):
         T.greedy_map(op, 2, lmn, lmx, max_iters=8, exact=True,
                      incremental=True)

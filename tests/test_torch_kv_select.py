@@ -350,6 +350,12 @@ def test_apply_block_mask_equals_the_reference():
 
 
 def test_rankers_refuse_a_mesh_until_ported():
+    """``mesh=`` reaches the engine, which takes a lane mesh
+    (tests/test_torch_sharded.py runs the rankers on one) and refuses
+    anything else."""
     keys, block, _ = _near_duplicate_keys()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.rank_blocks(keys, block=block, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        TS.BlockRanker(block=block, mesh=object(), device="cpu").extend(
+            keys).rank()

@@ -9,7 +9,8 @@ same traffic, pins the discrete outcomes as equal (decisions, resolved
 and certified flags, iterations, submission order) and the brackets to
 1e-12 relative. They also hold the port's own rules: banked states share
 no storage with the pool, a reference-banked partial resumes in a port
-engine through ``convert``, and ``mesh=`` raises until it is ported."""
+engine through ``convert``, and ``mesh=`` refuses anything but a lane
+mesh (tests/test_torch_sharded.py serves on one)."""
 import dataclasses
 import time
 
@@ -613,8 +614,10 @@ def test_engine_signatures_count_once_per_new_driver_signature():
 
 
 def test_engine_mesh_raises_until_ported():
+    """``mesh=`` takes a lane mesh (tests/test_torch_sharded.py serves on
+    one) and refuses anything else; block lanes have no requests."""
     a = make_spd(8, kappa=5.0, seed=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.BIFEngine(T.Dense(torch.tensor(a)), mesh=object())
     with pytest.raises(NotImplementedError, match="block_size"):
         TS.BIFEngine(T.Dense(torch.tensor(a)),

@@ -201,7 +201,7 @@ def test_probe_stream_extends_and_resumes_bit_exact():
                      **iv)
     with pytest.raises(ValueError, match="probes must be"):
         T.trace_quad(op, "log", 32, probes=zs, **iv)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.trace_quad(op, "log", 8, mesh=object(), **iv)
 
 
