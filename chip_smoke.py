@@ -97,14 +97,30 @@ It runs every phase, in order, each printing one JSON line:
                  the card row by row, and the same measure on planted
                  faults, which it must catch;
  12. coo      -- two SparseCOO matvecs on the card give identical bits;
- 13. profile  -- each path call again (and the DPP chain and the greedy
+ 13. train    -- the training path: olmo-1b at its published width
+                 (16 layers, d_model 2048, 16 heads, d_ff 8192, vocab
+                 50304, bf16, 1,176,764,416 parameters) for 8 steps of
+                 8 x 1024 tokens through the launcher's own pieces
+                 (launch.train.build_run): the DPP batch selector, AdamW
+                 with warmup-cosine, the GQL spectral monitor every 4
+                 steps, async checkpoints; it holds (a) the card to the
+                 port's CPU path (2 layers, f32), (b) bf16 to f32 at step
+                 0, (c) the loss falling, (d) the monitor's brackets
+                 around their dense truths, (e) every DPP selection
+                 certified and equal to the exact chain's, (f) a crash at
+                 step 6 resuming from step 4 with the uninterrupted run's
+                 losses (2 layers), (g) no kernel launched; and prints
+                 seconds a step, tokens/s, the share of the bf16 peak,
+                 peak memory, the monitor's and the selector's seconds
+                 and each checkpoint's seconds and bytes;
+ 14. profile  -- each path call again (and the DPP chain and the greedy
                  MAP call on 'pallas', with K1's share, and the serve-dense
                  flushes on 'pallas' and 'fused'), warm: host
                  seconds beside the device time of every kernel it
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 14. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 15. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -137,7 +153,7 @@ except ImportError:  # no PyTorch at all: nothing to drive
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
           "bilinear", "apps", "serve", "sharded", "attention", "coo",
-          "profile", "yardsticks")
+          "train", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -279,6 +295,23 @@ PLAIN_HEADS = 16  # heads per chunk of the plain version: (16, T, S) f32
 # f32: CUDA-core FMA in another order.
 ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4} if torch else {}
 FAULT_KEYS = (1024, 1088)
+# The training path (train phase): olmo-1b as src/repro_torch/configs/
+# olmo_1b.py defines it, with the launcher's settings
+# (src/repro_torch/launch/train.py): DPP selection over a pool of 3x the
+# batch, 2 chain moves an item; AdamW at warmup_cosine(3e-4, 1, 8); the
+# monitor every save (per_example 2, sketch_dim 16). TRAIN_CUT layers is
+# the depth cut of checks (a) and (f): (a) runs the port's CPU path
+# beside the card, (f) writes four checkpoints (2.4 GB each at 2 layers).
+TRAIN_ARCH = "olmo-1b"
+TRAIN = dict(steps=8, seq=1024, batch=8, lr=3e-4, save_every=4, keep=1)
+TRAIN_CUT = 2
+# (a) f32 on the card against f32 on the CPU: the same sums in another
+# order (cuBLAS and the CPU's BLAS, TF32 off). (b) bf16 against f32:
+# bf16 parameters and activations round at 2^-9. (d) the monitor's
+# operator is f32: its brackets may miss their f64 truths by f32
+# rounding. (f) resumed losses against the uninterrupted run's.
+TRAIN_TOL = {"cpu": 1e-5, "bf16": 2e-2, "f32": 1e-5, "resume": 1e-6}
+BF16_PEAK = 989e12   # dense bf16 FLOP/s of one H100 SXM (data sheet)
 
 
 def emit(obj) -> None:
@@ -794,6 +827,7 @@ class Smoke:
         self.setup_s = {}     # seconds of the problems' set-up steps
         self.late_library = []  # (name, kernel, library call): timed last
         self.kernels_per_call = {}  # name -> device kernels a call runs
+        self.train_cfg = None  # the train phase's config (None: olmo-1b)
 
     # -- problems --------------------------------------------------------
 
@@ -2575,6 +2609,328 @@ class Smoke:
               "matvec_ms": cuda_ms(lambda: op.matvec(x))})
         assert same, "COO matvec is not deterministic"
         assert rel <= 1e-12
+
+    # -- the training path --------------------------------------------------
+
+    def train_config(self):
+        """olmo-1b as the port's configs define it (a rehearsal on the CPU
+        sets ``self.train_cfg`` to a small config)."""
+        from repro_torch.configs import get_arch
+        return self.train_cfg or get_arch(TRAIN_ARCH)
+
+    def phase_train(self):
+        """The training path end to end on the card, through the
+        launcher's pieces (``launch.train.build_run``): olmo-1b at full
+        width, DPP-selected batches, AdamW, the GQL monitor, async
+        checkpoints; checks (a)-(g) of the module docstring. No kernel of
+        the port lies on this path: every launch counter must read 0."""
+        import shutil
+        import tempfile
+
+        from repro_torch.checkpoint import io as ckpt_io
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        from repro_torch.launch import train as launch
+        from repro_torch.models import model as M
+
+        t_phase = time.perf_counter()
+        cfg = self.train_config()
+        module_params = sum(p.numel() for p in M.LM(
+            cfg, M.param_skeleton(cfg)).parameters())
+        line = {"phase": "train", "arch": cfg.name,
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                "norm": cfg.norm, "dtype": cfg.dtype, "remat": cfg.remat,
+                "param_count": cfg.param_count(),
+                "module_params": module_params, "tokens_per_step":
+                TRAIN["batch"] * TRAIN["seq"], "depth_cut_a_f": TRAIN_CUT,
+                "tol": TRAIN_TOL, "nvidia_smi": nvidia_smi()}
+        assert module_params == cfg.param_count(), \
+            f"the module holds {module_params} parameters, the config " \
+            f"{cfg.param_count()}"
+        if cfg.name == "olmo-1b":
+            assert cfg.param_count() == 1_176_764_416
+        root = Path(__file__).resolve().parent / "build"
+        root.mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=root))
+        line["disk_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+
+        def run_of(c, name, monitor):
+            return launch.build_run(
+                c, steps=TRAIN["steps"], seq=TRAIN["seq"],
+                batch=TRAIN["batch"], lr=TRAIN["lr"], selector="dpp",
+                monitor=monitor, save_every=TRAIN["save_every"],
+                keep_checkpoints=TRAIN["keep"], ckpt_dir=tmp / name,
+                device=self.dev)
+
+        reset_launches()
+        # each save: the host snapshot (before the next step may run) and
+        # the write on the saver's thread, with the bytes on disk
+        saves = {}
+        real_save, real_async = ckpt_io.save, ckpt_io.AsyncSaver.save
+
+        def record(ckpt_dir, step):
+            return saves.setdefault(f"{Path(ckpt_dir).parent.name}/{step}",
+                                    {})
+
+        def timed_save(ckpt_dir, step, tree_, *, extra=None):
+            t0 = time.perf_counter()
+            out = real_save(ckpt_dir, step, tree_, extra=extra)
+            record(ckpt_dir, step).update(
+                write_s=time.perf_counter() - t0,
+                bytes=sum(f.stat().st_size for f in out.iterdir()))
+            return out
+
+        def timed_snapshot(saver, ckpt_dir, step, tree_, extra=None):
+            t0 = time.perf_counter()
+            real_async(saver, ckpt_dir, step, tree_, extra=extra)
+            record(ckpt_dir, step)["snapshot_s"] = time.perf_counter() - t0
+
+        ckpt_io.save, ckpt_io.AsyncSaver.save = timed_save, timed_snapshot
+        try:
+            self.train_main(cfg, run_of, line)
+            self.train_cpu_parity(cfg, line)
+            self.train_resume(cfg, run_of, line, tmp)
+        finally:
+            ckpt_io.save, ckpt_io.AsyncSaver.save = real_save, real_async
+            shutil.rmtree(tmp, ignore_errors=True)
+        line["checkpoint_saves"] = saves
+        launches = dict(LAUNCHES)
+        line["launches"] = launches
+        line["seconds"] = time.perf_counter() - t_phase
+        emit(line)
+        # (g) nothing of this path runs a port kernel
+        assert not any(launches.values()), \
+            f"the training path launched port kernels: {launches}"
+
+    def train_main(self, cfg, run_of, line):
+        """The 8-step run with the selector, the monitor and checkpoints:
+        (b) before it, (c), (d) and (e) over it, and its timings."""
+        from repro_torch import tree
+        from repro_torch.data import DPPSelector
+        from repro_torch.models import model as M
+        from repro_torch.train import train as train_loop
+        run = run_of(cfg, "main", monitor=True)
+        sel = run.stream.selector
+        picks, sel_s = {}, []
+        real_select = sel.select
+
+        def select(pool_tokens, k, step=0, *, draws=None):
+            t0 = time.perf_counter()
+            idx = real_select(pool_tokens, k, step, draws=draws)
+            torch.cuda.synchronize()
+            sel_s.append(time.perf_counter() - t0)
+            picks[step] = (idx, dict(sel.last_stats))
+            return idx
+
+        sel.select = select
+        batch0 = run.stream.batch_at(0)
+        sel_s.clear()
+        self.train_first = {k: v[:1].cpu() for k, v in batch0.items()}
+
+        # (b) the step-0 loss in bf16 against the same parameters in f32
+        p0, _ = M.init_model(SEED, cfg, device=self.dev)
+        with torch.no_grad():
+            l16 = float(M.loss_fn(cfg, p0, batch0)[0])
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = tree.map(lambda x: x.to(torch.float32), p0)
+            del p0
+            l32 = float(M.loss_fn(c32, p32, batch0)[0])
+        del p32
+        line["b_loss_bf16"], line["b_loss_f32"] = l16, l32
+        line["b_rel"] = abs(l16 - l32) / abs(l32)
+        assert line["b_rel"] <= TRAIN_TOL["bf16"], \
+            f"(b) bf16 loss {l16} vs f32 {l32}"
+
+        step_s, mon_s, checks = [], [], []
+
+        def step_fn(params, opt_state, batch):
+            if len(step_s) == 1:   # step 1, outside the median: profiled
+                return self.train_profile(run.step_fn, params, opt_state,
+                                          batch, step_s, line)
+            t0 = time.perf_counter()
+            out = run.step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        def monitor(params, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run.monitor(params, batch)
+            torch.cuda.synchronize()
+            mon_s.append(time.perf_counter() - t0)
+            checks.append(self.train_monitor_check(cfg, params, batch, got))
+            return got
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_loop(
+            loop_cfg=run.loop_cfg, ckpt_dir=run.ckpt_dir,
+            init_state=run.init_state, step_fn=step_fn,
+            batch_fn=run.stream.batch_at, monitor_fn=monitor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+
+        losses = res.losses
+        # (c) the loss falls
+        assert np.mean(losses[-2:]) < np.mean(losses[:2]), \
+            f"(c) the loss did not fall: {losses}"
+        # (e) every selection certified, the same as the exact chain's
+        # under the same draws (a generator seeded with the step)
+        exact = DPPSelector(pool_factor=sel.pool_factor,
+                            steps_per_item=sel.steps_per_item, exact=True,
+                            device=self.dev)
+        same = []
+        for step, (idx, stats) in sorted(picks.items()):
+            assert stats["uncertified"] == 0, f"(e) step {step}: {stats}"
+            pool = run.stream.pool_at(step)[:, :-1]
+            want = exact.select(pool, run.stream.stream.local_batch, step)
+            same.append(bool(np.array_equal(idx, want)))
+        assert all(same), f"(e) selections differ from exact: {same}"
+
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        sps = float(np.median(step_s[2:]))
+        line.update(
+            losses=losses, loss_step0_equals_b=losses[0] == l16,
+            step_s=step_s, seconds_per_step=sps, tokens_per_s=tokens / sps,
+            bf16_peak_share=6 * cfg.param_count() * tokens / sps / BF16_PEAK,
+            max_memory_allocated=peak, run_wall_s=wall,
+            monitor_s=mon_s, monitor_s_per_call=float(np.mean(mon_s)),
+            monitor=dict(res.monitor_log), d_checks=checks,
+            selection_s=sel_s, selection_s_per_batch=float(np.mean(sel_s)),
+            selection_stats={s: st for s, (_, st) in sorted(picks.items())},
+            e_same_as_exact=same)
+
+    def train_profile(self, step_fn, params, opt_state, batch, step_s,
+                      line):
+        """One train step under torch.profiler: host seconds, the device
+        seconds of every kernel it ran, the idle share, and the kernels
+        that took the most device time."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        step_s.append(host)
+        rows = [(e.key, e.device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_time_total > 0 and not e.is_user_annotation
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(ms for _, ms, _ in rows) / 1e3
+        rows.sort(key=lambda r: -r[1])
+        line["profile_step1"] = {
+            "host_s": host, "device_s": device,
+            "idle_share": 1 - device / host if host > 0 else None,
+            "top_kernels_ms": [[k[:90], ms, n] for k, ms, n in rows[:14]]}
+        return out
+
+    def train_monitor_check(self, cfg, params, batch, got):
+        """(d): the sketches again on the same parameters and batch, the
+        dense f64 truths, and the monitor's dict against the bounds of
+        those sketches."""
+        from repro_torch.models import model as M
+        from repro_torch.train import monitor as mon
+        lam, n, k = 1e-3, 2, 16
+        sk = mon.example_sketches(M.loss_fn, cfg, params, batch, n=n,
+                                  sketch_dim=k)
+        s64 = sk.double()
+        f = s64.T @ s64 / n + lam * torch.eye(k, dtype=torch.float64,
+                                              device=sk.device)
+        probe = s64.mean(0)
+        w = torch.linalg.eigvalsh(f)
+        truth = {"nat": float(probe @ torch.linalg.solve(f, probe)),
+                 "logdet": float(torch.linalg.slogdet(f)[1]),
+                 "kappa": float(w[-1] / w[0])}
+        bif = mon.fisher_proxy_bounds(sk, sk.mean(0), lam=lam)
+        ld = mon.logdet_bounds(sk, lam=lam)
+        again = {"nat_norm_lower": float(bif.lower),
+                 "nat_norm_upper": float(bif.upper),
+                 "quad_iters": int(bif.iterations),
+                 "logdet_lower": float(ld.lower),
+                 "logdet_upper": float(ld.upper),
+                 **mon.condition_number_bounds(sk, lam=lam)}
+        tol = TRAIN_TOL["f32"]
+
+        def holds(lo, hi, t):
+            return lo - tol * abs(t) <= t <= hi + tol * abs(t)
+
+        out = {"truth": truth, "dict_bit_equal": got == again,
+               "max_rel_diff_vs_again": max(
+                   abs(got[x] - again[x]) / max(abs(again[x]), 1e-30)
+                   for x in again),
+               "kappa_upper_holds": got["kappa_upper"] >= truth["kappa"]}
+        assert set(got) == set(again)
+        assert out["max_rel_diff_vs_again"] <= tol, f"(d) {got} vs {again}"
+        assert holds(got["nat_norm_lower"], got["nat_norm_upper"],
+                     truth["nat"]), f"(d) nat norm {got} vs {truth}"
+        assert holds(got["logdet_lower"], got["logdet_upper"],
+                     truth["logdet"]), f"(d) logdet {got} vs {truth}"
+        assert got["kappa_lower"] <= truth["kappa"] * (1 + tol), \
+            f"(d) kappa_lower {got['kappa_lower']} vs {truth['kappa']}"
+        return out
+
+    def train_cpu_parity(self, cfg, line):
+        """(a) the loss and every gradient leaf's norm of the first batch's
+        first sequence, f32, TRAIN_CUT layers at full width: the card
+        against the port's CPU path on the same parameters."""
+        from repro_torch import tree
+        from repro_torch.models import model as M
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT, dtype="float32")
+        params, _ = M.init_model(SEED, cut, device="cpu")
+        batch = self.train_first
+        t0 = time.perf_counter()
+        (l_cpu, _), g_cpu = M.value_and_grad(cut, params, batch)
+        cpu_s = time.perf_counter() - t0
+        on = lambda x: x.to(self.dev)  # noqa: E731
+        (l_dev, _), g_dev = M.value_and_grad(cut, tree.map(on, params),
+                                             tree.map(on, batch))
+        n_cpu = [float(torch.linalg.vector_norm(g.double()))
+                 for g in tree.leaves(g_cpu)]
+        n_dev = [float(torch.linalg.vector_norm(g.double()))
+                 for g in tree.leaves(g_dev)]
+        rel = [abs(a - b) / b for a, b in zip(n_dev, n_cpu)]
+        line.update(a_loss_card=float(l_dev), a_loss_cpu=float(l_cpu),
+                    a_loss_rel=abs(float(l_dev) - float(l_cpu))
+                    / abs(float(l_cpu)),
+                    a_grad_norm_rel=rel, a_cpu_s=cpu_s)
+        assert line["a_loss_rel"] <= TRAIN_TOL["cpu"], "(a) loss"
+        assert max(rel) <= TRAIN_TOL["cpu"], f"(a) gradient norms {rel}"
+
+    def train_resume(self, cfg, run_of, line, tmp):
+        """(f) TRAIN_CUT layers at full width, bf16: a run stopped at step 6
+        resumes from step 4 with the losses of an uninterrupted run, under
+        torch.use_deterministic_algorithms (which needs the cuBLAS
+        workspace variable set; on the H100 ':4096:8' is also the size
+        PyTorch picks by default)."""
+        import os
+        import shutil
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            full = run_of(cut, "full", monitor=False).train()
+            shutil.rmtree(tmp / "full", ignore_errors=True)
+            try:
+                run_of(cut, "crash", monitor=False).train(fail_at_step=6)
+                raise AssertionError("(f) the run did not stop at step 6")
+            except RuntimeError as e:
+                assert "preemption at step 6" in str(e), e
+            res = run_of(cut, "crash", monitor=False).train()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want = full.losses[4:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, want))
+        line.update(f_resumed_from=res.resumed_from,
+                    f_losses_resumed=res.losses, f_losses_full=want,
+                    f_bit_equal=res.losses == want, f_max_rel=rel)
+        assert res.resumed_from == 4, f"(f) resumed from {res.resumed_from}"
+        assert len(res.losses) == len(want) and rel <= TRAIN_TOL["resume"], \
+            f"(f) {res.losses} vs {want}"
 
     def phase_profile(self):
         """Where the time goes: for each path call, warm, its host

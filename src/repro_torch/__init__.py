@@ -9,12 +9,19 @@ greedy MAP, double greedy, the incremental Cholesky factor);
 (``launch.make_lane_mesh``, ``sharding.lane_plan``); ``kernels`` the
 hand-written Hopper kernels K1-K7 with their plain PyTorch versions; ``serve`` the continuous-batching ``BIFEngine`` and the
 KV-cache block rankers; ``obs`` metrics, spans, the driver-signature
-registry and convergence health; ``data`` numpy matrix builders; and
-``convert`` numpy leaves to the port's states. Importing it needs no
-GPU, ``nvcc`` or ``triton``: the kernels build at first CUDA use.
+registry and convergence health; ``data`` numpy matrix builders, the
+synthetic token stream and the DPP batch selector; the training path of
+the dense LM: ``configs`` (the ten architectures), ``models`` (the dense
+decoder as an ``nn.Module`` with the reference's functional entry
+points), ``optim`` (AdamW), ``checkpoint`` (the reference's on-disk
+layout), ``train`` (the fault-tolerant loop and the GQL spectral
+monitor) and ``launch.train`` / ``launch.steps``; ``tree`` the
+reference's leaf order; and ``convert`` numpy leaves to the port's
+states and parameters. Importing it needs no GPU, ``nvcc`` or
+``triton``: the kernels build at first CUDA use.
 """
-from . import convert, core, data, kernels, launch, obs, serve, \
-    sharding  # noqa: F401
+from . import checkpoint, configs, convert, core, data, kernels, launch, \
+    models, obs, optim, serve, sharding, train, tree  # noqa: F401
 from .core import ArgmaxResult, BIFSolver, BlockState, ChainFactor, \
     ChainState, CoeffHistory, Dense, DGResult, GreedyMapResult, Jacobi, \
     JudgeResult, LogLikelihoodResult, Masked, MatvecFn, QuadratureTrace, \

@@ -6,9 +6,12 @@ Python metadata (the leaves of an operator or of a
 ``QuadState``/``ChainFactor``/``ChainState``) and return the port's
 operator or state on ``device``; ``request_from_numpy`` builds a
 ``BIFRequest`` whose banked per-lane state (a ``QuadState`` over a 1-D
-``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``. Whoever holds another package's arrays
-converts them to numpy first, so this module never sees them; it is what
-lets a parity test start two implementations from identical states.
+``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``. ``params_from_numpy`` / ``params_to_numpy`` and
+``adamw_state_from_numpy`` carry a model's parameters and its AdamW state
+as numpy leaves in the reference's leaf order. Whoever holds another
+package's arrays converts them to numpy first, so this module never sees
+them; it is what lets a parity test start two implementations from
+identical states.
 """
 from __future__ import annotations
 
@@ -145,6 +148,79 @@ def state_from_numpy(fields: dict, *, device="cuda", mesh=None,
     raise ValueError(f"fields {sorted(keys)} match no LanczosState, "
                      f"GQLState, CoeffHistory, BlockState, QuadState, "
                      f"ChainFactor or ChainState")
+
+
+def _leaf_tensor(arr, like, dev) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes' bf16: the same words
+        t = torch.from_numpy(np.array(arr, order="C").view(np.int16)
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.array(arr))
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"leaf shape {tuple(t.shape)}, the model's "
+                         f"{tuple(like.shape)}")
+    return t.to(device=dev, dtype=like.dtype)
+
+
+def params_from_numpy(cfg, leaves, *, device="cuda"):
+    """The port's parameter tree for ``cfg`` from numpy leaves in the
+    reference's leaf order (``jax.tree.leaves`` of its ``init_model``),
+    each cast to the model's dtype."""
+    from . import tree
+    from .models import model as _model
+
+    dev = _ops.resolve_device(device)
+    like, spec = tree.flatten(_model.param_skeleton(cfg))
+    leaves = list(leaves)
+    if len(leaves) != len(like):
+        raise ValueError(f"{len(leaves)} leaves; {cfg.name} has "
+                         f"{len(like)}")
+    return tree.unflatten(spec, [_leaf_tensor(a, lk, dev)
+                                 for a, lk in zip(leaves, like)])
+
+
+def params_to_numpy(params) -> list:
+    """The leaves of a port tree (parameters, gradients, moments) as numpy
+    arrays in the reference's leaf order; bf16 leaves widen to f32
+    (exactly)."""
+    from . import tree
+
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+
+    return [one(t) for t in tree.leaves(params)]
+
+
+def adamw_state_from_numpy(cfg, leaves, *, device="cuda"):
+    """The port's ``AdamWState`` for ``cfg``'s parameters from the
+    reference's state leaves in its order: the step count, then the
+    first moments, then the second (f32, shaped like the parameters)."""
+    from . import tree
+    from .models import model as _model
+    from .optim import AdamWState
+
+    dev = _ops.resolve_device(device)
+    like, spec = tree.flatten(_model.param_skeleton(cfg))
+    leaves = list(leaves)
+    if len(leaves) != 1 + 2 * len(like):
+        raise ValueError(f"{len(leaves)} leaves; an AdamW state of "
+                         f"{cfg.name} has {1 + 2 * len(like)}")
+    f32 = [torch.empty(x.shape, dtype=torch.float32, device="meta")
+           for x in like]
+
+    def moments(arrs):
+        return tree.unflatten(spec, [_leaf_tensor(a, lk, dev)
+                                     for a, lk in zip(arrs, f32)])
+
+    n = len(like)
+    return AdamWState(count=torch.as_tensor(np.array(leaves[0]),
+                                            dtype=torch.int32),
+                      m=moments(leaves[1:1 + n]),
+                      v=moments(leaves[1 + n:]))
 
 
 def request_from_numpy(fields: dict, *, device="cuda"):

@@ -1,0 +1,62 @@
+"""The train step (counterpart of the train half of
+``repro.launch.steps``).
+
+``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
+opt_state, metrics)``, which updates the parameters and the optimizer
+state in place. With ``microbatches > 1`` the batch is split along its
+first axis and the f32 gradients are averaged over the pieces. The
+prefill/decode builders and the shardings wait for the Engine and the
+sharded-training slices (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import tree
+from ..models import model as M
+from ..optim.adamw import AdamW, warmup_cosine
+
+
+def default_optimizer(total_steps: int = 10000) -> AdamW:
+    return AdamW(lr=warmup_cosine(3e-4, 200, total_steps))
+
+
+def build_train_step(cfg, mesh=None, plan=None,
+                     optimizer: Optional[AdamW] = None,
+                     microbatches: int = 1):
+    """``fn(params, opt_state, batch) -> (params, opt_state, metrics)`` on
+    one device. ``mesh`` / ``plan`` (model-parallel or FSDP shardings)
+    wait for data- and model-parallel training (ROADMAP Queue 1)."""
+    if mesh is not None or plan is not None:
+        raise NotImplementedError(
+            "sharded training (mesh=, plan=) waits for data-parallel and "
+            "model-parallel training (ROADMAP Queue 1)")
+    optimizer = optimizer or default_optimizer()
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            mbs = tree.map(lambda x: x.reshape(
+                (microbatches, x.shape[0] // microbatches) + x.shape[1:]),
+                batch)
+            gacc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lacc = 0.0
+            for k in range(microbatches):
+                mb = tree.map(lambda x: x[k], mbs)
+                (loss, _), grads = M.value_and_grad(cfg, params, mb)
+                gacc = tree.map(
+                    lambda a, g: a + g.to(torch.float32) / microbatches,
+                    gacc, grads)
+                lacc = lacc + loss / microbatches
+            grads, metrics = gacc, {"loss": lacc}
+        else:
+            (loss, metrics), grads = M.value_and_grad(cfg, params, batch)
+            metrics = dict(metrics, loss=loss)
+        params, opt_state, opt_metrics = optimizer.update(grads, opt_state,
+                                                          params)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step

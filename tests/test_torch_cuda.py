@@ -1115,3 +1115,90 @@ def test_rank_local_engine_flush_on_the_card(nccl_unit_mesh):
         assert (g.decision, g.certified, g.resolved, g.iterations, g.lower,
                 g.upper) == (w.decision, w.certified, w.resolved,
                              w.iterations, w.lower, w.upper), i
+
+
+# -- the training path (no kernel: the model, optimizer, checkpoints and
+# monitor on the card against the port's CPU path)
+
+
+def _small_lm(dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("olmo-1b").reduced(), dtype=dtype)
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """One train step (microbatches 1 and 2) of reduced olmo-1b in f32 on
+    the card against the same step on the CPU: loss within 1e-5, the
+    updated parameters within 1e-5 of their largest entry (AdamW at
+    eps 1e-3, see tests/test_torch_train.py); in bf16 the parameters stay
+    bf16 and the moments f32."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW
+    cfg = _small_lm()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 33)).astype(
+        np.int32)
+    for mb in (1, 2):
+        outs = []
+        for dev in ("cpu", cuda):
+            p, _ = M.init_model(0, cfg, device="cpu")
+            p = tree.map(lambda x: x.to(dev), p)
+            opt = AdamW(lr=1e-2, eps=1e-3)
+            batch = {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                     "labels": torch.tensor(toks[:, 1:], device=dev)}
+            p, _, m = steps.build_train_step(cfg, optimizer=opt,
+                                             microbatches=mb)(
+                p, opt.init(p), batch)
+            outs.append((float(m["loss"]), [x.cpu() for x in tree.leaves(p)]))
+        (l_cpu, p_cpu), (l_dev, p_dev) = outs
+        assert abs(l_dev - l_cpu) <= 1e-5 * l_cpu
+        for a, b in zip(p_dev, p_cpu):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    c16 = _small_lm("bfloat16")
+    p, _ = M.init_model(1, c16, device=cuda)
+    opt = AdamW(lr=1e-2)
+    st = opt.init(p)
+    batch = {"tokens": torch.tensor(toks[:, :-1], device=cuda),
+             "labels": torch.tensor(toks[:, 1:], device=cuda)}
+    p, st, m = steps.build_train_step(c16, optimizer=opt)(p, st, batch)
+    assert torch.isfinite(m["loss"])
+    assert all(x.dtype == torch.bfloat16 and x.is_cuda
+               for x in tree.leaves(p))
+    assert all(x.dtype == torch.float32 for x in tree.leaves(st.m))
+
+
+def test_checkpoint_bf16_roundtrip_on_the_card(cuda, tmp_path):
+    """Every bf16 bit pattern of a card tensor is written as its 16-bit
+    word and restored onto the card unchanged; the async saver copies the
+    leaves off the card before an in-place update can reach them."""
+    from repro_torch.checkpoint import io
+    words = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16)
+    t = {"w": words.view(torch.bfloat16).reshape(256, 256).to(cuda),
+         "m": torch.randn(7, 5, device=cuda)}
+    want = {k: v.clone() for k, v in t.items()}
+    saver = io.AsyncSaver()
+    saver.save(tmp_path, 1, t)
+    for v in t.values():
+        v.add_(1)
+    saver.wait()
+    got = io.restore(tmp_path, 1, t)
+    assert got["w"].is_cuda and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), want["w"].view(torch.int16))
+    assert torch.equal(got["m"], want["m"])
+
+
+def test_monitor_draws_on_the_card(cuda):
+    """The sketch's counter-based draws: the integer hash is exact on
+    either device, so the card's draws match the CPU's to the erfinv's
+    rounding (1e-6), and blocked draws equal the whole on the card."""
+    from repro_torch.train import monitor
+    whole = monitor.projection(7, 3, 16, 0, 100_003, cuda)
+    blocked = torch.cat([monitor.projection(7, 3, 16, a, b, cuda)
+                         for a, b in ((0, 5), (5, 65_536), (65_536, 100_003))],
+                        dim=1)
+    assert torch.equal(whole, blocked)
+    cpu = monitor.projection(7, 3, 16, 0, 100_003)
+    assert (whole.cpu() - cpu).abs().max() <= 1e-6 * cpu.abs().max()

@@ -32,6 +32,14 @@ def test_port_files_exist():
     assert {"solver.py", "operators.py", "gql.py", "lanczos.py",
             "lanczos_step.py", "gql_update.py", "spmv_bell.py", "ops.py",
             "convert.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(REPO / "src" / "repro_torch"))
+           for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"tree.py", "configs/base.py", "configs/olmo_1b.py",
+            "models/common.py", "models/attention.py", "models/losses.py",
+            "models/model.py", "optim/adamw.py", "checkpoint/io.py",
+            "data/synthetic.py", "data/dpp_selection.py", "train/loop.py",
+            "train/monitor.py", "launch/steps.py",
+            "launch/train.py"} <= rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -50,6 +58,9 @@ def test_import_needs_no_gpu_or_compiler():
     assert repro_torch.LAUNCHES == {k: 0 for k in repro_torch.LAUNCHES} \
         or all(isinstance(v, int) for v in repro_torch.LAUNCHES.values())
     assert _build._LIBS == {} or all(_build._LIBS)
+    for sub in ("checkpoint", "configs", "models", "optim", "train",
+                "tree"):
+        assert hasattr(repro_torch, sub)
     assert {p.name for p in _build.sources()} == {
         "gql_update.cu", "bell.cu", "dense_step.cu", "bell_mrhs.cu",
         "bilinear_matvec.cu", "flash_attention.cu"}
