@@ -113,14 +113,32 @@ It runs every phase, in order, each printing one JSON line:
                  seconds a step, tokens/s, the share of the bf16 peak,
                  peak memory, the monitor's and the selector's seconds
                  and each checkpoint's seconds and bytes;
- 14. profile  -- each path call again (and the DPP chain and the greedy
-                 MAP call on 'pallas', with K1's share, and the serve-dense
-                 flushes on 'pallas' and 'fused'), warm: host
+ 14. generate -- the LM's serving path: olmo-1b at its published width
+                 (bf16, the train phase's parameters' seed) served by
+                 Engine.generate: 8 requests with prompts of 512-1024
+                 tokens from the seed, left-padded, 64 new tokens each,
+                 max_seq 1152, with the default f32 cache, an int8 cache
+                 and at temperature 0.8 (seeded draws); it holds (a) the
+                 card to the port's CPU path (2 layers, f32, prompts of
+                 at most 128 tokens, 8 new tokens: logits within 1e-5,
+                 tokens up to the first step whose top-2 margin is under
+                 it), (b) a decode step to a prefill (bf16, 2e-2), (c)
+                 int8 to f32 caches (prefill logits, the first token),
+                 (d) Engine.generate to a manual prefill + decode_step
+                 loop, (e) the same draws giving the same tokens, each
+                 the argmax of logits / T + g, (f) no kernel launched;
+                 and prints the prefill seconds, the decode seconds a
+                 step, tokens/s, peak memory and a decode step's bytes
+                 against its bound;
+ 15. profile  -- each path call again (and the DPP chain and the greedy
+                 MAP call on 'pallas', with K1's share, the serve-dense
+                 flushes on 'pallas' and 'fused', and the generate
+                 phase's prefill and one decode step), warm: host
                  seconds beside the device time of every kernel it
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 15. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 16. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -153,7 +171,7 @@ except ImportError:  # no PyTorch at all: nothing to drive
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
           "bilinear", "apps", "serve", "sharded", "attention", "coo",
-          "train", "profile", "yardsticks")
+          "train", "generate", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -312,6 +330,23 @@ TRAIN_CUT = 2
 # rounding. (f) resumed losses against the uninterrupted run's.
 TRAIN_TOL = {"cpu": 1e-5, "bf16": 2e-2, "f32": 1e-5, "resume": 1e-6}
 BF16_PEAK = 989e12   # dense bf16 FLOP/s of one H100 SXM (data sheet)
+# The serving path of the LM (generate phase): olmo-1b as the train phase
+# builds it, served by the Engine: GEN["requests"] prompts with lengths
+# drawn from the seed in [prompt_lo, prompt_hi], left-padded to the
+# longest, GEN["new"] tokens each, max_seq GEN["max_seq"]; runs with the
+# Engine's default f32 cache, an int8 cache and one at temperature
+# GEN["temperature"] (draws from a seeded generator). GEN_CUT is check
+# (a)'s cut: GEN_CUT["layers"] layers at full width in f32, prompts of at
+# most GEN_CUT["prompt"] tokens, GEN_CUT["new"] new tokens, on the card
+# and on the CPU.
+GEN = dict(requests=8, prompt_lo=512, prompt_hi=1024, new=64, max_seq=1152,
+           temperature=0.8)
+GEN_CUT = dict(layers=2, prompt=128, new=8)
+# (a) f32 on the card against f32 on the CPU (another summation order,
+# TF32 off); (b) a decode step against a prefill, bf16 weights (the
+# reference's own test bound, tests/test_models.py); (c) int8 against f32
+# caches: prefill attends the fresh k / v, so only the caches differ.
+GEN_TOL = {"cpu": 1e-5, "decode": 2e-2, "int8": 1e-4}
 
 
 def emit(obj) -> None:
@@ -503,6 +538,16 @@ def planted_faults(q, k, v, want) -> dict:
              "no_rescale": merge(merge(pa, pb, rescale=False), pc)}
     return {what: row_errors([out(x)], [ref])[1]
             for what, x in wrong.items()}
+
+
+def left_pad(prompts) -> np.ndarray:
+    """The prompts left-padded with token 0 to the longest, as
+    ``Engine.generate`` pads them."""
+    t = max(len(p) for p in prompts)
+    out = np.zeros((len(prompts), t), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, t - len(p):] = p
+    return out
 
 
 def iterations_of(out) -> int:
@@ -828,6 +873,7 @@ class Smoke:
         self.late_library = []  # (name, kernel, library call): timed last
         self.kernels_per_call = {}  # name -> device kernels a call runs
         self.train_cfg = None  # the train phase's config (None: olmo-1b)
+        self.gen = None       # the generate phase's model, prompts, caches
 
     # -- problems --------------------------------------------------------
 
@@ -2932,6 +2978,290 @@ class Smoke:
         assert len(res.losses) == len(want) and rel <= TRAIN_TOL["resume"], \
             f"(f) {res.losses} vs {want}"
 
+    def gen_problem(self):
+        """The generate phase's model and traffic: the train phase's
+        config (olmo-1b) in bf16 with parameters drawn on the card from
+        SEED, GEN["requests"] prompts whose lengths and tokens come from
+        the seed, and their batch left-padded with token 0."""
+        if self.gen is None:
+            from repro_torch.models import model as M
+            t0 = time.perf_counter()
+            cfg = self.train_config()
+            params, _ = M.init_model(SEED, cfg, device=self.dev)
+            rng = np.random.default_rng(SEED + 11)
+            lens = rng.integers(GEN["prompt_lo"], GEN["prompt_hi"] + 1,
+                                GEN["requests"])
+            prompts = [rng.integers(1, cfg.vocab - 1, n).astype(np.int32)
+                       for n in lens]
+            self.gen = dict(cfg=cfg, params=params, prompts=prompts,
+                            padded=left_pad(prompts), rng=rng)
+            self.setup_s["generate problem"] = time.perf_counter() - t0
+        return self.gen
+
+    def gen_manual(self, cfg, params, padded, new, s_max, dev, *,
+                   forced=None):
+        """A greedy prefill + decode_step loop on ``dev`` with f32 caches
+        of ``s_max``, as the Engine runs one: the (B, new) tokens and each
+        step's last-token logits (on the host). ``forced`` (B, new) feeds
+        those tokens instead of the argmax (the logits then follow the
+        same sequence on two devices)."""
+        from repro_torch.models import model as M
+        b, t = padded.shape
+        caches = M.make_caches(cfg, b, s_max, torch.float32, device=dev)
+        caches, logits = M.prefill(
+            cfg, params, {"tokens": torch.as_tensor(padded, device=dev)},
+            caches)
+        toks, seen = [], []
+        for step in range(new):
+            last = logits[:, -1, :]
+            seen.append(last.cpu())
+            tok = torch.argmax(last, dim=-1)
+            toks.append(tok.cpu().numpy())
+            if step == new - 1:
+                break
+            if forced is not None:
+                tok = torch.as_tensor(forced[:, step], device=dev)
+            caches, logits = M.decode_step(cfg, params, caches, {
+                "tokens": tok.to(torch.int32)[:, None],
+                "position": torch.full((1,), t + step, dtype=torch.int32,
+                                       device=dev)})
+        return np.stack(toks, 1), seen
+
+    def gen_engine(self, cfg, params, prompts, *, quantized=False,
+                   temperature=0.0, gumbel=None):
+        """``Engine.generate`` over ``prompts`` with each prefill and decode
+        call timed (synchronised before and after) and each step's logits
+        kept (on the card): (tokens (B, new), prefill seconds, decode
+        seconds a step, logits, wall seconds)."""
+        from repro_torch.serve import Engine, Request
+        eng = Engine(cfg, params, max_batch=len(prompts),
+                     max_seq=GEN["max_seq"], quantized_kv=quantized,
+                     gumbel=gumbel)
+        pre_s, dec_s, logits = [], [], []
+
+        def timed(fn, into):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        real_sample = eng._sample
+
+        def sample(lg, t):
+            logits.append(lg[:, -1, :])
+            return real_sample(lg, t)
+
+        eng._prefill = timed(eng._prefill, pre_s)
+        eng._decode = timed(eng._decode, dec_s)
+        eng._sample = sample
+        reqs = [Request(prompt=p, max_new_tokens=GEN["new"],
+                        temperature=temperature) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        wall = time.perf_counter() - t0
+        return (np.stack([r.out_tokens for r in reqs]), pre_s[0], dec_s,
+                logits, wall)
+
+    def phase_generate(self):
+        """The LM's serving path on the card: olmo-1b at full width (bf16)
+        served by ``Engine.generate``; checks (a)-(f) of the module
+        docstring, the prefill and decode times, tokens/s, peak memory
+        and a decode step's bytes against its bound. No kernel of the
+        port lies on this path: every launch counter must read 0."""
+        from repro_torch import tree
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        from repro_torch.models import model as M
+        t_phase = time.perf_counter()
+        reset_launches()
+        g = self.gen_problem()
+        cfg, params, prompts, padded = (g["cfg"], g["params"], g["prompts"],
+                                        g["padded"])
+        b, t = padded.shape
+        new = GEN["new"]
+        if cfg.name == "olmo-1b":
+            assert cfg.param_count() == 1_176_764_416
+        line = {"phase": "generate", "arch": cfg.name,
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "dtype": cfg.dtype, "param_count": cfg.param_count(),
+                "requests": b, "prompt_lens": [len(p) for p in prompts],
+                "padded_len": t, "new_tokens": new,
+                "max_seq": GEN["max_seq"], "tol": GEN_TOL,
+                "nvidia_smi": nvidia_smi()}
+
+        # (d) a manual greedy loop (which also warms the shapes), then the
+        # Engine's default f32 cache, timed
+        man, _ = self.gen_manual(cfg, params, padded, new, GEN["max_seq"],
+                                 self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        tok32, pre_s, dec_s, lg32, wall = self.gen_engine(cfg, params,
+                                                          prompts)
+        peak = torch.cuda.max_memory_allocated()
+        line["d_equal"] = bool(np.array_equal(tok32, man))
+        assert line["d_equal"], "(d) Engine.generate, the manual loop"
+        step_s = float(np.median(dec_s[1:]))
+        p_bytes = sum(x.numel() * x.element_size()
+                      for x in tree.leaves(params))
+        kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim_ * 4
+        # the least a decode step must move: every parameter once, the
+        # cache's filled rows (mean over the run's steps), the logits
+        filled = t + new / 2
+        need = p_bytes + kv_row * filled + b * cfg.vocab * 4
+        # what the step moves as written: the whole cache, and the tied
+        # table cast to f32 (read bf16, write and read f32)
+        table = cfg.vocab * cfg.d_model
+        as_run = p_bytes + kv_row * GEN["max_seq"] + table * (2 + 4 + 4)
+        line.update(
+            prefill_s=pre_s, decode_step_s=dec_s,
+            decode_s_per_step=step_s, decode_tokens_per_s=b / step_s,
+            e2e_tokens_per_s=b * new / wall, run_wall_s=wall,
+            max_memory_allocated=peak, step_bytes_needed=need,
+            step_bound_ms=need / PEAK_BYTES * 1e3,
+            step_bound_share=need / PEAK_BYTES / step_s,
+            step_bytes_as_run=as_run,
+            step_as_run_ms=as_run / PEAK_BYTES * 1e3,
+            step_as_run_share=as_run / PEAK_BYTES / step_s)
+
+        # (c) int8 caches against f32
+        tok8, _, _, lg8, _ = self.gen_engine(cfg, params, prompts,
+                                             quantized=True)
+        line["c_prefill_rel"] = errors([lg8[0]], [lg32[0]])[1]
+        line["c_first_token_equal"] = bool(np.array_equal(tok8[:, 0],
+                                                          tok32[:, 0]))
+        line["c_token_share_equal"] = float(np.mean(tok8 == tok32))
+        assert line["c_prefill_rel"] <= GEN_TOL["int8"], "(c) prefill"
+        assert line["c_first_token_equal"], "(c) first token"
+        del lg8
+
+        # (e) temperature: the same draws twice, and each step's token
+        # the argmax of logits / T + g recomputed from what it saw
+        temp = GEN["temperature"]
+        runs = []
+        for _ in range(2):
+            gen = torch.Generator(device=self.dev).manual_seed(SEED + 12)
+            drawn = []
+
+            def gumbel(shape, gen=gen, drawn=drawn):
+                e = torch.empty(shape, dtype=torch.float32, device=self.dev)
+                x = -torch.log(e.exponential_(generator=gen))
+                drawn.append(x)
+                return x
+
+            tok, _, _, lg, _ = self.gen_engine(cfg, params, prompts,
+                                               temperature=temp,
+                                               gumbel=gumbel)
+            runs.append((tok, lg, drawn))
+        (tok_t, lg_t, dr_t), (tok_u, _, _) = runs
+        again = np.stack([torch.argmax(lg / temp + x, dim=-1).cpu().numpy()
+                          for lg, x in zip(lg_t, dr_t)], 1)
+        line.update(e_same_twice=bool(np.array_equal(tok_t, tok_u)),
+                    e_recomputed_equal=bool(np.array_equal(again, tok_t)),
+                    e_token_share_equal_greedy=float(np.mean(tok_t ==
+                                                             tok32)))
+        assert line["e_same_twice"], "(e) the same draws, other tokens"
+        assert line["e_recomputed_equal"], "(e) argmax(logits / T + g)"
+        del runs, lg_t, dr_t, lg32
+
+        # (b) a decode step against a prefill, full width, bf16 weights
+        toks = torch.as_tensor(padded, device=self.dev)
+        c_full = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
+        _, l_full = M.prefill(cfg, params, {"tokens": toks}, c_full)
+        c_part = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
+        c_part, _ = M.prefill(cfg, params, {"tokens": toks[:, :-1]}, c_part)
+        _, l_dec = M.decode_step(cfg, params, c_part, {
+            "tokens": toks[:, -1:],
+            "position": torch.full((1,), t - 1, dtype=torch.int32,
+                                   device=self.dev)})
+        line["b_rel"] = errors([l_dec], [l_full])[1]
+        assert line["b_rel"] <= GEN_TOL["decode"], f"(b) {line['b_rel']}"
+        del c_full, c_part
+
+        self.gen_cpu_parity(cfg, line)
+        launches = dict(LAUNCHES)
+        line["launches"] = launches
+        line["seconds"] = time.perf_counter() - t_phase
+        emit(line)
+        # (f) nothing of this path runs a port kernel
+        assert not any(launches.values()), \
+            f"the serving path launched port kernels: {launches}"
+
+    def gen_cpu_parity(self, cfg, line):
+        """(a) GEN_CUT["layers"] layers at full width in f32: the card's
+        greedy loop against the port's CPU path fed the card's tokens, on
+        prompts cut to at most GEN_CUT["prompt"] tokens."""
+        from repro_torch import tree
+        from repro_torch.models import model as M
+        g = self.gen
+        cut = dataclasses.replace(cfg, n_layers=GEN_CUT["layers"],
+                                  dtype="float32")
+        params, _ = M.init_model(SEED, cut, device="cpu")
+        lens = g["rng"].integers(GEN_CUT["prompt"] // 2,
+                                 GEN_CUT["prompt"] + 1, len(g["prompts"]))
+        padded = left_pad([p[:n] for p, n in zip(g["prompts"], lens)])
+        new = GEN_CUT["new"]
+        s_max = padded.shape[1] + new
+        t0 = time.perf_counter()
+        tok_dev, lg_dev = self.gen_manual(
+            cut, tree.map(lambda x: x.to(self.dev), params), padded, new,
+            s_max, self.dev)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok_cpu, lg_cpu = self.gen_manual(cut, params, padded, new, s_max,
+                                          torch.device("cpu"),
+                                          forced=tok_dev)
+        cpu_s = time.perf_counter() - t0
+        tol = GEN_TOL["cpu"]
+        rel = [errors([a], [c])[1] for a, c in zip(lg_dev, lg_cpu)]
+        # the first step whose top-2 margin (of any request) lies under
+        # the tolerance: the tokens may part from there on
+        close = None
+        for step, lg in enumerate(lg_dev):
+            top = torch.topk(lg.double(), 2, dim=-1).values
+            margin = float((top[:, 0] - top[:, 1]).min()
+                           / lg.double().abs().max())
+            if margin < tol:
+                close = step
+                break
+        upto = new if close is None else close
+        line.update(a_prompt_lens=lens.tolist(), a_logits_rel=rel,
+                    a_first_close_step=close,
+                    a_tokens_equal_to_close=bool(np.array_equal(
+                        tok_dev[:, :upto], tok_cpu[:, :upto])),
+                    a_card_s=dev_s, a_cpu_s=cpu_s)
+        print(f"generate (a): first step under the top-2 margin: {close}",
+              flush=True)
+        assert max(rel) <= tol, f"(a) logits {rel}"
+        assert line["a_tokens_equal_to_close"], "(a) tokens"
+
+    def gen_profiled(self) -> dict:
+        """The generate phase's prefill and one decode step (at the padded
+        prompt's length), each on its own f32 cache reset before the
+        call, for the profile phase."""
+        from repro_torch.models import model as M
+        g = self.gen_problem()
+        cfg, params = g["cfg"], g["params"]
+        b, t = g["padded"].shape
+        toks = torch.as_tensor(g["padded"], device=self.dev)
+        caches = M.make_caches(cfg, b, GEN["max_seq"], torch.float32,
+                               device=self.dev)
+        dec = {"tokens": toks[:, -1:],
+               "position": torch.full((1,), t, dtype=torch.int32,
+                                      device=self.dev)}
+
+        def prefill():
+            caches.length.zero_()
+            return M.prefill(cfg, params, {"tokens": toks}, caches)[1]
+
+        def decode():
+            caches.length.fill_(t)
+            return M.decode_step(cfg, params, caches, dec)[1]
+
+        return {"generate prefill": prefill, "generate decode step": decode}
+
     def phase_profile(self):
         """Where the time goes: for each path call, warm, its host
         seconds (no profiler) beside the device time of every kernel it
@@ -2991,6 +3321,7 @@ class Smoke:
         for backend in ("pallas", "fused"):
             calls[f"serve dense flush {backend}"] = \
                 lambda b=backend: self.serve_run("dense", b)[2]
+        calls.update(self.gen_profiled())
         for what, fn in calls.items():
             if not what.startswith("trace"):   # the trace phase warmed these
                 fn()

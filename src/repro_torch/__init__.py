@@ -7,17 +7,19 @@ stochastic trace and the paper's applications (DPP / k-DPP chains,
 greedy MAP, double greedy, the incremental Cholesky factor);
 ``core.sharded`` the lanes split over the ranks of a lane mesh
 (``launch.make_lane_mesh``, ``sharding.lane_plan``); ``kernels`` the
-hand-written Hopper kernels K1-K7 with their plain PyTorch versions; ``serve`` the continuous-batching ``BIFEngine`` and the
-KV-cache block rankers; ``obs`` metrics, spans, the driver-signature
-registry and convergence health; ``data`` numpy matrix builders, the
-synthetic token stream and the DPP batch selector; the training path of
-the dense LM: ``configs`` (the ten architectures), ``models`` (the dense
-decoder as an ``nn.Module`` with the reference's functional entry
-points), ``optim`` (AdamW), ``checkpoint`` (the reference's on-disk
-layout), ``train`` (the fault-tolerant loop and the GQL spectral
-monitor) and ``launch.train`` / ``launch.steps``; ``tree`` the
+hand-written Hopper kernels K1-K7 with their plain PyTorch versions;
+``serve`` the continuous-batching ``BIFEngine``, the KV-cache block
+rankers and the LLM ``Engine`` (prefill and decode with KV caches);
+``obs`` metrics, spans, the driver-signature registry and convergence
+health; ``data`` numpy matrix builders, the synthetic token stream and
+the DPP batch selector; the training path of the dense LM: ``configs``
+(the ten architectures), ``models`` (the dense decoder as an
+``nn.Module`` with the reference's functional entry points), ``optim``
+(AdamW), ``checkpoint`` (the reference's on-disk layout), ``train`` (the
+fault-tolerant loop and the GQL spectral monitor), ``launch.train`` /
+``launch.steps``, and its serving path (``launch.serve``); ``tree`` the
 reference's leaf order; and ``convert`` numpy leaves to the port's
-states and parameters. Importing it needs no GPU, ``nvcc`` or
+states, parameters and KV caches. Importing it needs no GPU, ``nvcc`` or
 ``triton``: the kernels build at first CUDA use.
 """
 from . import checkpoint, configs, convert, core, data, kernels, launch, \
@@ -34,3 +36,4 @@ from .core import ArgmaxResult, BIFSolver, BlockState, ChainFactor, \
     trace_quad, \
     tree_freeze  # noqa: F401
 from .kernels import LAUNCHES  # noqa: F401
+from .serve import Engine, Request, generate_trace_count  # noqa: F401

@@ -8,7 +8,9 @@ operator or state on ``device``; ``request_from_numpy`` builds a
 ``BIFRequest`` whose banked per-lane state (a ``QuadState`` over a 1-D
 ``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``. ``params_from_numpy`` / ``params_to_numpy`` and
 ``adamw_state_from_numpy`` carry a model's parameters and its AdamW state
-as numpy leaves in the reference's leaf order. Whoever holds another
+as numpy leaves in the reference's leaf order, and ``caches_from_numpy``
+/ ``caches_to_numpy`` its stacked KV caches, so a decode resumes in the
+port from caches the reference filled. Whoever holds another
 package's arrays converts them to numpy first, so this module never sees
 them; it is what lets a parity test start two implementations from
 identical states.
@@ -150,13 +152,23 @@ def state_from_numpy(fields: dict, *, device="cuda", mesh=None,
                      f"ChainFactor or ChainState")
 
 
-def _leaf_tensor(arr, like, dev) -> torch.Tensor:
+def _from_numpy(arr) -> torch.Tensor:
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":   # ml_dtypes' bf16: the same words
-        t = torch.from_numpy(np.array(arr, order="C").view(np.int16)
-                             ).view(torch.bfloat16)
-    else:
-        t = torch.as_tensor(np.array(arr))
+        return torch.from_numpy(np.array(arr, order="C").view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.as_tensor(np.array(arr))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def _leaf_tensor(arr, like, dev) -> torch.Tensor:
+    t = _from_numpy(arr)
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"leaf shape {tuple(t.shape)}, the model's "
                          f"{tuple(like.shape)}")
@@ -185,14 +197,7 @@ def params_to_numpy(params) -> list:
     arrays in the reference's leaf order; bf16 leaves widen to f32
     (exactly)."""
     from . import tree
-
-    def one(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        return t.numpy()
-
-    return [one(t) for t in tree.leaves(params)]
+    return [_to_numpy(t) for t in tree.leaves(params)]
 
 
 def adamw_state_from_numpy(cfg, leaves, *, device="cuda"):
@@ -221,6 +226,40 @@ def adamw_state_from_numpy(cfg, leaves, *, device="cuda"):
                                             dtype=torch.int32),
                       m=moments(leaves[1:1 + n]),
                       v=moments(leaves[1 + n:]))
+
+
+def caches_from_numpy(cfg, leaves, *, device="cuda"):
+    """The port's stacked ``KVCache`` for ``cfg`` from the leaves of the
+    reference's (``jax.tree.leaves`` of its ``make_caches`` / ``prefill``
+    caches): ``k``, ``v``, ``length`` (n_layers,), and for an int8 cache
+    ``k_scale``, ``v_scale``. Each leaf keeps its dtype (a bf16 cache
+    stays bf16); ``length`` is int32."""
+    from .models.attention import KVCache
+
+    dev = _ops.resolve_device(device)
+    leaves = list(leaves)
+    if len(leaves) not in (3, 5):
+        raise ValueError(f"{len(leaves)} leaves; a KVCache has 3 (k, v, "
+                         f"length) or 5 (with the int8 scales)")
+    shape = (cfg.n_layers, None, None, cfg.n_kv_heads, cfg.head_dim_)
+    out = [_from_numpy(a).to(dev) for a in leaves]
+    for t in (out[0], out[1]):
+        if t.ndim != 5 or any(w is not None and w != g
+                              for w, g in zip(shape, t.shape)):
+            raise ValueError(f"cache shape {tuple(t.shape)}, {cfg.name} "
+                             f"takes (n_layers, B, S, Hkv, D) = {shape}")
+    out[2] = out[2].to(torch.int32)
+    if tuple(out[2].shape) != (cfg.n_layers,):
+        raise ValueError(f"length shape {tuple(out[2].shape)}, want "
+                         f"({cfg.n_layers},)")
+    return KVCache(*out)
+
+
+def caches_to_numpy(caches) -> list:
+    """The leaves of a port ``KVCache`` (stacked or not) as numpy arrays in
+    the reference's order, the None scales left out; bf16 widens to f32
+    (exactly)."""
+    return [_to_numpy(t) for t in caches if t is not None]
 
 
 def request_from_numpy(fields: dict, *, device="cuda"):

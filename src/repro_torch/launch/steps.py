@@ -1,12 +1,14 @@
-"""The train step (counterpart of the train half of
+"""The train and serve steps on one device (counterpart of
 ``repro.launch.steps``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)``, which updates the parameters and the optimizer
 state in place. With ``microbatches > 1`` the batch is split along its
-first axis and the f32 gradients are averaged over the pieces. The
-prefill/decode builders and the shardings wait for the Engine and the
-sharded-training slices (ROADMAP Queue 1).
+first axis and the f32 gradients are averaged over the pieces.
+``build_prefill_step`` / ``build_decode_step`` return ``model.prefill`` /
+``model.decode_step`` bound to a config; both write the caches in place.
+The shardings (``mesh=``, ``plan=``) wait for data- and model-parallel
+training (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -23,16 +25,20 @@ def default_optimizer(total_steps: int = 10000) -> AdamW:
     return AdamW(lr=warmup_cosine(3e-4, 200, total_steps))
 
 
+def _one_device(mesh, plan) -> None:
+    if mesh is not None or plan is not None:
+        raise NotImplementedError(
+            "sharded steps (mesh=, plan=) wait for data-parallel and "
+            "model-parallel training (ROADMAP Queue 1 item 6)")
+
+
 def build_train_step(cfg, mesh=None, plan=None,
                      optimizer: Optional[AdamW] = None,
                      microbatches: int = 1):
     """``fn(params, opt_state, batch) -> (params, opt_state, metrics)`` on
     one device. ``mesh`` / ``plan`` (model-parallel or FSDP shardings)
     wait for data- and model-parallel training (ROADMAP Queue 1)."""
-    if mesh is not None or plan is not None:
-        raise NotImplementedError(
-            "sharded training (mesh=, plan=) waits for data-parallel and "
-            "model-parallel training (ROADMAP Queue 1)")
+    _one_device(mesh, plan)
     optimizer = optimizer or default_optimizer()
 
     def train_step(params, opt_state, batch):
@@ -60,3 +66,27 @@ def build_train_step(cfg, mesh=None, plan=None,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+
+
+def build_prefill_step(cfg, mesh=None, plan=None):
+    """``fn(params, batch, caches) -> (caches, logits)`` on one device."""
+    _one_device(mesh, plan)
+
+    def prefill_step(params, batch, caches):
+        return M.prefill(cfg, params, batch, caches)
+
+    return prefill_step
+
+
+def build_decode_step(cfg, mesh=None, plan=None):
+    """``fn(params, caches, batch) -> (caches, logits)`` on one device."""
+    _one_device(mesh, plan)
+
+    def decode_step(params, caches, batch):
+        return M.decode_step(cfg, params, caches, batch)
+
+    return decode_step

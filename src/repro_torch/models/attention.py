@@ -1,17 +1,24 @@
-"""GQA attention for training, in plain PyTorch (counterpart of the train
-mode of ``repro.models.attention``).
+"""GQA attention in plain PyTorch (counterpart of
+``repro.models.attention``): the training, prefill and decode modes.
 
 ``full``     materialises (T, S) scores in f32;
-``chunked``  loops over query tiles, O(bq * S) live scores a tile.
+``chunked``  loops over query tiles, O(bq * S) live scores a tile;
+``decode``   one query against a (possibly int8) KV cache.
 
-Both contract grouped queries against un-replicated KV, as the reference
-does; neither goes through a fused attention call, because the reference
-computes neither. The KV cache, int8 caches and the decode path wait for
-the Engine (ROADMAP Queue 1).
+All contract grouped queries against un-replicated KV, as the reference
+does; none goes through a fused attention call, because the reference
+computes none. Sliding-window masking applies in all three.
+
+The reference's ``cache_update`` is functional. Here the cache buffers
+are written in place (``index_copy_``, or the one-hot select copied
+back), and ``length`` grows in place: a functional copy of the whole
+cache a step would cost more than the rest of a decode step's bytes.
+The ``'encoder'`` / ``'cross'`` modes and M-RoPE wait for the enc-dec and
+VLM families (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,13 +56,15 @@ def _repeat_kv(k: Tensor, n_heads: int) -> Tensor:
 
 
 def _mask(rows: Tensor, cols: Tensor, *, causal: bool,
-          window: Optional[int]) -> Tensor:
+          window: Optional[int], s_valid=None) -> Tensor:
     m = torch.ones(torch.broadcast_shapes(rows.shape, cols.shape),
                    dtype=torch.bool, device=rows.device)
     if causal:
         m = m & (cols <= rows)
     if window is not None:
         m = m & (cols > rows - window)
+    if s_valid is not None:
+        m = m & (cols < s_valid)
     return m
 
 
@@ -103,15 +112,125 @@ def _sdpa_chunked(q, k, v, *, causal, window, chunk: int):
     return torch.cat(outs, dim=1)
 
 
-def attn_apply(cfg, p, x: Tensor, *, positions: Tensor,
-               mode: str = "train") -> Tensor:
-    """Causal self-attention of a training step. The other modes (the
-    cache-filling prefill and decode, the encoder's and cross-attention)
-    wait for the Engine and their families."""
-    if mode != "train":
+# ---------------------------------------------------------------------------
+# KV caches
+
+
+class KVCache(NamedTuple):
+    k: Tensor        # (B, S_max, Hkv, D) in the cache dtype
+    v: Tensor
+    length: Tensor   # () int32: tokens stored so far
+    k_scale: Optional[Tensor] = None   # int8 scales, f32 (B, S_max, Hkv, 1)
+    v_scale: Optional[Tensor] = None
+
+
+def make_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
+               dtype=torch.bfloat16, quantized: bool = False, *,
+               device="cuda") -> KVCache:
+    """An empty cache; ``quantized`` stores int8 with f32 scales (and
+    ignores ``dtype``)."""
+    shape = (batch, s_max, n_kv, head_dim)
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if quantized:
+        def zeros(shp, dt):
+            return torch.zeros(shp, dtype=dt, device=device)
+        return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                       length=length,
+                       k_scale=zeros(shape[:-1] + (1,), torch.float32),
+                       v_scale=zeros(shape[:-1] + (1,), torch.float32))
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=length)
+
+
+def _quantize(x: Tensor):
+    """int8 codes and f32 scales: scale = max|x| / 127 + 1e-8 over the
+    head width, codes round(x / scale) (ties to even) clipped to +-127."""
+    scale = x.abs().amax(dim=-1, keepdim=True).to(torch.float32) / 127.0 \
+        + 1e-8
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127
+                    ).to(torch.int8)
+    return q, scale
+
+
+def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
+                 onehot: bool = False) -> KVCache:
+    """Append k/v (B, T_new, Hkv, D) at position ``length``, IN PLACE: the
+    buffers and ``length`` of ``cache`` are written, and the cache is
+    returned. The write starts at ``min(length, S_max - T_new)``, as the
+    reference's ``dynamic_update_slice`` clamps it; ``length`` stays on
+    the device (no host read).
+
+    ``onehot=True`` (single-token decode only) writes through a one-hot
+    select over the sequence axis, as the reference does for its
+    sequence-sharded layout; on one device it gives the same values."""
+    t_new = k_new.shape[1]
+    s_max = cache.k.shape[1]
+
+    if onehot and t_new == 1:
+        pos = torch.arange(s_max, dtype=cache.length.dtype,
+                           device=cache.k.device)
+        oh = (pos == cache.length)[None, :, None, None]
+
+        def upd(buf, val):
+            buf.copy_(torch.where(oh, val.to(buf.dtype), buf))
+    else:
+        start = torch.clamp(cache.length, max=s_max - t_new).long()
+        idx = start + torch.arange(t_new, device=cache.k.device)
+
+        def upd(buf, val):
+            buf.index_copy_(1, idx, val.to(buf.dtype))
+
+    if cache.k_scale is not None:
+        kq, ks = _quantize(k_new)
+        vq, vs = _quantize(v_new)
+        upd(cache.k, kq)
+        upd(cache.v, vq)
+        upd(cache.k_scale, ks)
+        upd(cache.v_scale, vs)
+    else:
+        upd(cache.k, k_new)
+        upd(cache.v, v_new)
+    cache.length.add_(t_new)
+    return cache
+
+
+def _cache_kv(cache: KVCache):
+    """The cache's k and v; int8 ones dequantised to bf16 (whatever the
+    model's dtype), as the reference does."""
+    if cache.k_scale is not None:
+        k = cache.k.to(torch.float32) * cache.k_scale
+        v = cache.v.to(torch.float32) * cache.v_scale
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return cache.k, cache.v
+
+
+def _sdpa_decode(q, cache: KVCache, *, window, constrain_kv=False):
+    """q: (B, 1, H, D) against the whole cache, the unwritten tail masked.
+    ``constrain_kv`` pins the reference's sequence-sharded layout; on one
+    device there is nothing to pin."""
+    del constrain_kv
+    b, t, h, d = q.shape
+    k, v = _cache_kv(cache)
+    s = k.shape[1]
+    rows = (cache.length - 1)[None, None]     # the query's position
+    cols = torch.arange(s, device=q.device)[None, :]
+    m = _mask(rows, cols, causal=True, window=window, s_valid=cache.length)
+    return _attend(_group_q(q, k.shape[2]), k, v, m).reshape(b, t, h, d)
+
+
+def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
+               cache: Optional[KVCache] = None, cross_kv=None,
+               window: Optional[int] = None):
+    """mode: 'train' | 'prefill' | 'decode'. Returns ``(out, cache)``;
+    'prefill' and 'decode' write ``cache`` in place (``cache_update``).
+    Prefill attends the fresh k / v, not the cache. The encoder's and
+    cross-attention modes wait for their families."""
+    if mode not in ("train", "prefill", "decode") or cross_kv is not None:
         raise NotImplementedError(
-            f"attention mode {mode!r} waits for the LLM Engine and its "
-            f"families (ROADMAP Queue 1); the port runs 'train'")
+            f"attention mode {mode!r} waits for the enc-dec family "
+            f"(ROADMAP Queue 1); the port runs 'train', 'prefill' and "
+            f"'decode'")
     if cfg.rope != "rope":
         raise NotImplementedError(
             f"rope={cfg.rope!r} waits for its family (ROADMAP Queue 1)")
@@ -122,12 +241,28 @@ def attn_apply(cfg, p, x: Tensor, *, positions: Tensor,
     v = _split_heads(cm.dense_apply(p["wv"], x), cfg.n_kv_heads)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    if _select_impl(cfg, t) == "chunked" and t % cfg.attn_chunk == 0:
-        out = _sdpa_chunked(q, k, v, causal=True, window=None,
-                            chunk=cfg.attn_chunk)
+
+    if mode == "decode":
+        cache = cache_update(cache, k, v, onehot=cfg.decode_constrain_kv)
+        out = _sdpa_decode(q, cache, window=window,
+                           constrain_kv=cfg.decode_constrain_kv)
     else:
-        out = _sdpa_full(q, k, v, causal=True, window=None)
-    return cm.dense_apply(p["wo"], out.reshape(b, t, cfg.n_heads * hd))
+        if mode == "prefill":
+            cache = cache_update(cache, k, v)
+        impl = _select_impl(cfg, t)
+        if impl == "chunked" and (mode == "prefill" or t % cfg.attn_chunk
+                                  == 0):
+            out = _sdpa_chunked(q, k, v, causal=True, window=window,
+                                chunk=cfg.attn_chunk)
+        else:
+            out = _sdpa_full(q, k, v, causal=True, window=window)
+    # The output projection runs in the weights' dtype. Where the
+    # reference runs, that is jnp's promotion (an int8 cache's bf16 output
+    # against f32 weights widens to f32); an f32 cache under bf16 weights,
+    # whose f32 output the reference's scan carry refuses (ROADMAP Queue
+    # 3), joins the bf16 residual stream here.
+    out = out.reshape(b, t, cfg.n_heads * hd).to(p["wo"]["w"].dtype)
+    return cm.dense_apply(p["wo"], out), cache
 
 
 def _select_impl(cfg, t: int) -> str:

@@ -1,9 +1,12 @@
-"""Model assembly for the dense decoder-only LM (counterpart of the train
-path of ``repro.models.model``).
+"""Model assembly for the dense decoder-only LM (counterpart of
+``repro.models.model`` for ``family == "dense"``).
 
     params, axes = init_model(seed, cfg)                   # or a Generator
     loss, metrics = loss_fn(cfg, params, batch)            # train
     (loss, metrics), grads = value_and_grad(cfg, params, batch)
+    caches = make_caches(cfg, batch, s_max)                # serve
+    caches, logits = prefill(cfg, params, batch, caches)
+    caches, logits = decode_step(cfg, params, caches, batch)
 
 ``params`` is the reference's nested dict: every block parameter stacked
 along a leading (n_layers, ...) axis under ``blocks``, leaves in the
@@ -14,9 +17,12 @@ as an ``nn.Module``; ``loss_fn`` runs that module through
 goes through one forward. The blocks run one after another, indexing the
 stacked leaves by layer; ``cfg.remat == "block"`` recomputes each block in
 the backward pass (``torch.utils.checkpoint``), which changes no bit.
+The serving entry points run under ``torch.no_grad()`` without it, and
+write the caches in place (``attention.cache_update``): the caches they
+return share the storage of the caches they were given.
 
 The MoE, SSM, hybrid, enc-dec and VLM families wait for ROADMAP Queue 1;
-their ``init_model`` / ``loss_fn`` raise.
+their ``init_model`` / ``loss_fn`` / ``make_caches`` raise.
 """
 from __future__ import annotations
 
@@ -74,11 +80,16 @@ def dense_block_init(make, cfg, dtype):
     return p, a
 
 
-def dense_block_apply(cfg, p, x: Tensor, *, positions: Tensor):
+def dense_block_apply(cfg, p, x: Tensor, *, positions: Tensor,
+                      mode: str = "train", cache=None, window=None):
+    """``(x, cache)`` after one decoder block, in the weights' dtype
+    whatever the cache's (``attention.attn_apply``)."""
     h = cm.norm_apply(cfg.norm, p["ln1"], x)
-    x = x + attn.attn_apply(cfg, p["attn"], h, positions=positions)
+    o, cache = attn.attn_apply(cfg, p["attn"], h, positions=positions,
+                               mode=mode, cache=cache, window=window)
+    x = x + o
     h = cm.norm_apply(cfg.norm, p["ln2"], x)
-    return x + cm.mlp_apply(cfg, p["mlp"], h)
+    return x + cm.mlp_apply(cfg, p["mlp"], h), cache
 
 
 def _build(cfg, make):
@@ -147,16 +158,32 @@ def _maybe_remat(cfg, fn):
     return fn
 
 
-def _scan_stack(cfg, stack_params, x: Tensor, apply_one) -> Tensor:
-    """Apply ``apply_one(p_i, x) -> x`` for each layer i of the stacked
-    tree, in order. The leaves are unbound once, so the backward pass
-    stacks each leaf's layer gradients in one go."""
+def _layer_caches(caches, n: int) -> list:
+    """Per-layer views of stacked caches (every field's leading axis)."""
+    fields = [None if f is None else f.unbind(0) for f in caches]
+    return [type(caches)(*(None if f is None else f[i] for f in fields))
+            for i in range(n)]
+
+
+def _scan_stack(cfg, stack_params, x: Tensor, apply_one, caches=None):
+    """Apply ``apply_one(p_i, x, c_i) -> (x, c_i)`` for each layer i of the
+    stacked tree, in order; ``c_i`` is layer i's view of the stacked
+    ``caches`` (None in training), which the layer writes in place.
+    Returns ``(x, caches)``. The leaves are unbound once, so the backward
+    pass stacks each leaf's layer gradients in one go; only training
+    recomputes blocks (``cfg.remat``)."""
     leaves, spec = tree.flatten(stack_params)
     layers = [leaf.unbind(0) for leaf in leaves]
-    body = _maybe_remat(cfg, apply_one)
-    for i in range(leaves[0].shape[0]):
-        x = body(tree.unflatten(spec, [lyr[i] for lyr in layers]), x)
-    return x
+    n = leaves[0].shape[0]
+    if caches is None:
+        body = _maybe_remat(cfg, lambda p_i, x: apply_one(p_i, x, None)[0])
+        for i in range(n):
+            x = body(tree.unflatten(spec, [lyr[i] for lyr in layers]), x)
+        return x, None
+    for i, c_i in enumerate(_layer_caches(caches, n)):
+        x, _ = apply_one(tree.unflatten(spec, [lyr[i] for lyr in layers]),
+                         x, c_i)
+    return x, caches
 
 
 def _embed_inputs(cfg, params, batch):
@@ -168,14 +195,17 @@ def _embed_inputs(cfg, params, batch):
     return x, positions, mask
 
 
-def _apply_stacks(cfg, params, x: Tensor, *, positions: Tensor) -> Tensor:
-    """Run the block stack of a training step."""
+def _apply_stacks(cfg, params, x: Tensor, *, mode: str, positions: Tensor,
+                  caches=None):
+    """Run the block stack. Returns ``(x, caches)``."""
     _require_dense(cfg)
+    window = cfg.attn_window if mode != "train" else None
 
-    def one(p_i, x):
-        return dense_block_apply(cfg, p_i, x, positions=positions)
+    def one(p_i, x, c_i):
+        return dense_block_apply(cfg, p_i, x, positions=positions,
+                                 mode=mode, cache=c_i, window=window)
 
-    return _scan_stack(cfg, params["blocks"], x, one)
+    return _scan_stack(cfg, params["blocks"], x, one, caches)
 
 
 def units_tree(params):
@@ -184,7 +214,7 @@ def units_tree(params):
 
 def _loss(cfg, params, batch):
     x, positions, mask = _embed_inputs(cfg, params, batch)
-    x = _apply_stacks(cfg, params, x, positions=positions)
+    x, _ = _apply_stacks(cfg, params, x, mode="train", positions=positions)
     x = cm.norm_apply(cfg.norm, params["final_norm"], x)
     table = params["embed"]["table"] if cfg.tie_embeddings else \
         params["unembed"]["table"]
@@ -268,3 +298,49 @@ def value_and_grad(cfg, params, batch, loss=loss_fn):
     grads = torch.autograd.grad(value, xs)
     return ((value.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree.unflatten(spec, list(grads)))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+
+
+def make_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
+                quantized_kv: bool = False, *, device="cuda"):
+    """Empty decode caches for the dense stack: one ``KVCache`` whose
+    fields carry a leading (n_layers,) axis (``length`` is (n_layers,))."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    one = attn.make_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim_,
+                          dtype, quantized=quantized_kv, device=dev)
+    return type(one)(*(None if f is None else
+                       f.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * f.ndim)
+                       for f in one))
+
+
+def _logits(cfg, params, x: Tensor) -> Tensor:
+    x = cm.norm_apply(cfg.norm, params["final_norm"], x)
+    table = params["embed"]["table"] if cfg.tie_embeddings else \
+        params["unembed"]["table"]
+    return cm.unembed_logits({"table": table}, x)
+
+
+@torch.no_grad()
+def prefill(cfg, params, batch, caches):
+    """Consume the prompt ``batch['tokens']`` (B, T), fill ``caches`` (in
+    place: the returned caches share their storage) and return
+    ``(caches, logits)``, the f32 logits of the last token (B, 1, V)."""
+    x, positions, _ = _embed_inputs(cfg, params, batch)
+    x, caches = _apply_stacks(cfg, params, x, mode="prefill",
+                              positions=positions, caches=caches)
+    return caches, _logits(cfg, params, x[:, -1:, :])
+
+
+@torch.no_grad()
+def decode_step(cfg, params, caches, batch):
+    """One token: ``batch['tokens']`` (B, 1) at ``batch['position']``
+    (1,), one position shared by the batch. Writes ``caches`` in place and
+    returns ``(caches, logits)`` (B, 1, V) f32."""
+    x = cm.embed_apply(params["embed"], batch["tokens"])
+    x, caches = _apply_stacks(cfg, params, x, mode="decode",
+                              positions=batch["position"], caches=caches)
+    return caches, _logits(cfg, params, x)

@@ -1,6 +1,12 @@
-"""The quadrature-serving engine, PyTorch port (counterpart of the
-``BIFRequest`` / ``BIFEngine`` half of ``repro.serve.engine``; DESIGN.md
-Sec. 8).
+"""Batched serving engines, PyTorch port (counterpart of
+``repro.serve.engine``; DESIGN.md Sec. 8).
+
+``Engine``: prefill + decode of the dense LM with KV caches: left-padded
+batching, greedy or temperature sampling, per-request lengths, an int8
+KV option. It runs on its parameters' device; the prompts go up once, and
+each step's sampled tokens come back in one ``.cpu()``. Temperature
+sampling takes its Gumbel draws as an input (``gumbel=``), by default
+from a seeded ``torch.Generator`` on that device.
 
 ``BIFEngine`` is a continuous-batching scheduler over a fixed pool of
 ``max_batch`` quadrature lanes. Requests queue via ``submit``; ``flush``
@@ -35,16 +41,13 @@ made from gathered values. Each rank uploads and steps only its own
 slots; a round's per-lane results and the scheduler's clock are gathered
 once, and a banked partial's lane state is broadcast from the rank that
 holds it, so any rank can resume it in any slot.
-
-Not ported yet: the LLM ``Engine`` / ``Request`` wait for the LLM
-substrate.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ from ..core import spectrum as core_spectrum
 from ..core.loop_utils import tree_freeze
 from ..core.loop_utils import tree_map as _tree_map
 from ..core.solver import BIFSolver, QuadState, _bracket2
+from ..models import model as M
 from ..obs import metrics as obs_metrics
 from ..obs import registry as _obs_registry
 from ..obs import spans as obs_spans
@@ -118,8 +122,14 @@ _FLUSH_TRACE_KEYS = ("serve.engine.pool_admit", "serve.engine.pool_scatter",
 # basis=None).
 ENGINE_ADMIT_EXCLUDED = ("basis",)
 
+# The LLM Engine's generation drivers (prefill and decode), counted the
+# same way: once per new (cfg, shapes) signature. Two Engines around the
+# same reduced arch share their signatures, as they share the
+# reference's jit cache.
+_GEN_TRACE_KEYS = ("serve.engine.prefill", "serve.engine.decode")
+
 # The driver signatures met so far in this process, per driver.
-_SIGNATURES = {k: set() for k in _FLUSH_TRACE_KEYS}
+_SIGNATURES = {k: set() for k in _FLUSH_TRACE_KEYS + _GEN_TRACE_KEYS}
 _SIG_LOCK = threading.Lock()
 
 
@@ -137,6 +147,9 @@ def _signature(x):
         return ("tensor", tuple(x.shape), x.dtype, x.device)
     if isinstance(x, tuple):
         return (type(x).__name__,) + tuple(_signature(v) for v in x)
+    if isinstance(x, dict):
+        return ("dict",) + tuple((k, _signature(v))
+                                 for k, v in sorted(x.items()))
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return (type(x).__name__,) + tuple(
             (f.name, _signature(getattr(x, f.name)))
@@ -154,6 +167,120 @@ def _note_signature(name: str, *args) -> None:
             return
         seen.add(key)
     _obs_registry.count(name)
+
+
+# ---------------------------------------------------------------------------
+# The LLM Engine
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray          # (T,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    out_tokens: Optional[np.ndarray] = None
+
+
+def generate_trace_count() -> int:
+    """How many distinct prefill / decode driver signatures this process
+    has met (the reference counts compiles; see ``obs/registry.py``)."""
+    return sum(_obs_registry.value(k) for k in _GEN_TRACE_KEYS)
+
+
+def _prefill_run(cfg, params, batch, caches):
+    _note_signature("serve.engine.prefill", cfg, params, batch, caches)
+    return M.prefill(cfg, params, batch, caches)
+
+
+def _decode_run(cfg, params, caches, batch):
+    _note_signature("serve.engine.decode", cfg, params, caches, batch)
+    return M.decode_step(cfg, params, caches, batch)
+
+
+def _param_device(params) -> torch.device:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
+class Engine:
+    """Serves batches of ``Request`` on the device of ``params``.
+
+    ``gumbel(shape) -> Tensor`` gives the f32 Gumbel draws of one
+    temperature step, ``shape`` = (B, V), on that device; by default they
+    come from a ``torch.Generator`` seeded with ``seed``. A step samples
+    ``argmax(logits / T + g)``, which is ``jax.random.categorical`` with
+    the draws ``g = jax.random.gumbel(k, (B, V))``."""
+
+    def __init__(self, cfg, params, *, max_batch: int = 8,
+                 max_seq: int = 256, kv_dtype=torch.float32,
+                 quantized_kv: bool = False, seed: int = 0,
+                 gumbel: Optional[Callable] = None):
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.kv_dtype = kv_dtype
+        self.quantized_kv = quantized_kv
+        self.device = _param_device(params)
+        if gumbel is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+
+            def gumbel(shape):
+                e = torch.empty(shape, dtype=torch.float32,
+                                device=self.device)
+                return -torch.log(e.exponential_(generator=gen))
+        self.gumbel = gumbel
+
+    def _prefill(self, params, batch, caches):
+        return _prefill_run(self.cfg, params, batch, caches)
+
+    def _decode(self, params, caches, batch):
+        return _decode_run(self.cfg, params, caches, batch)
+
+    def _sample(self, logits: torch.Tensor, temperature: float):
+        last = logits[:, -1, :]
+        if temperature <= 0.0:
+            return torch.argmax(last, dim=-1)
+        return torch.argmax(last / temperature + self.gumbel(last.shape),
+                            dim=-1)
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Serve a batch of requests, left-padded with token 0 to the
+        longest prompt and run with no pad mask, as the reference does:
+        a request's tokens depend on the other prompts' lengths. The
+        batch shares one position a step and ``requests[0].temperature``.
+        """
+        assert len(requests) <= self.max_batch
+        b = len(requests)
+        t = max(len(r.prompt) for r in requests)
+        max_new = max(r.max_new_tokens for r in requests)
+        if t + max_new - 1 > self.max_seq:
+            raise ValueError(f"prompt {t} + {max_new} new tokens exceed "
+                             f"max_seq {self.max_seq}")
+        prompts = np.zeros((b, t), np.int32)
+        for i, r in enumerate(requests):
+            prompts[i, t - len(r.prompt):] = r.prompt  # left-pad
+        caches = M.make_caches(self.cfg, b, self.max_seq, self.kv_dtype,
+                               quantized_kv=self.quantized_kv,
+                               device=self.device)
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        caches, logits = self._prefill(self.params, batch, caches)
+        outs = np.zeros((b, max_new), np.int32)
+        temperature = requests[0].temperature
+        tok = self._sample(logits, temperature)
+        outs[:, 0] = tok.cpu().numpy()
+        for step in range(1, max_new):
+            dec = {"tokens": tok.to(torch.int32)[:, None],
+                   "position": torch.full((1,), t + step - 1,
+                                          dtype=torch.int32,
+                                          device=self.device)}
+            caches, logits = self._decode(self.params, caches, dec)
+            tok = self._sample(logits, temperature)
+            outs[:, step] = tok.cpu().numpy()
+        for i, r in enumerate(requests):
+            r.out_tokens = outs[i, :r.max_new_tokens]
+        return requests
 
 
 def _host(x) -> np.ndarray:

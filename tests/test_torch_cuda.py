@@ -15,6 +15,8 @@ f32 accumulation; K3 with an f32 A sums in f32), 3e-2 for K6 with bf16 A. K7 is 
 (head, query row) at its own norm (``_row_close``): 1e-2 for bf16 inputs
 (the output is rounded to bf16, 2^-9 relative), 2e-4 for f32 inputs.
 Empty inputs on the card raise: a call launches its kernel or raises.
+The LM's training and serving paths (no kernel) are held to the port's
+CPU path: 1e-5 for f32, 1e-2 for int8 caches (dequantised to bf16).
 """
 import numpy as np
 import pytest
@@ -1202,3 +1204,87 @@ def test_monitor_draws_on_the_card(cuda):
     assert torch.equal(whole, blocked)
     cpu = monitor.projection(7, 3, 16, 0, 100_003)
     assert (whole.cpu() - cpu).abs().max() <= 1e-6 * cpu.abs().max()
+
+
+# -- the serving path of the LM (no kernel: KV caches, prefill, decode and
+# the Engine on the card against the port's CPU path)
+
+
+def _served(cfg, dev, quantized, temperature=0.0):
+    """A reduced model's Engine on ``dev``: the tokens of three requests of
+    mixed lengths, and each step's logits (``_sample`` wrapped)."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, Request
+    p, _ = M.init_model(0, cfg, device="cpu")
+    draws = torch.Generator().manual_seed(5)
+
+    def gumbel(shape):   # drawn on the host: the same draws on each device
+        e = torch.empty(shape).exponential_(generator=draws)
+        return -torch.log(e).to(dev)
+
+    eng = Engine(cfg, tree.map(lambda x: x.to(dev), p), max_batch=4,
+                 max_seq=40, quantized_kv=quantized, gumbel=gumbel)
+    logits = []
+    real = eng._sample
+
+    def sample(lg, t):
+        logits.append(lg.cpu())
+        return real(lg, t)
+
+    eng._sample = sample
+    rng = np.random.default_rng(3)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab - 1, n).astype(
+                np.int32), max_new_tokens=m, temperature=temperature)
+            for n, m in ((9, 8), (17, 6), (4, 8))]
+    eng.generate(reqs)
+    return [r.out_tokens for r in reqs], logits
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_engine_on_the_card_matches_cpu(cuda, quantized):
+    """Reduced olmo-1b in f32, f32 and int8 caches: the card's logits at
+    every step within 1e-5 relative of the CPU's (int8: 1e-2, bf16
+    dequantised values in another order) and the same greedy tokens; at
+    T = 1 with the same draws, the same tokens."""
+    cfg = _small_lm()
+    tol = 1e-2 if quantized else 1e-5
+    for temperature in (0.0, 1.0):
+        (t_cpu, l_cpu), (t_dev, l_dev) = (
+            _served(cfg, d, quantized, temperature) for d in ("cpu", cuda))
+        assert len(l_cpu) == len(l_dev) == 8
+        for a, b in zip(l_dev, l_cpu):
+            assert (a - b).abs().max() <= tol * b.abs().max()
+        for a, b in zip(t_dev, t_cpu):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_int8_caches_on_the_card(cuda):
+    """int8 caches written on the card: the codes and scales of the card's
+    prefill equal the CPU's within one code (the projections round in
+    another order), lengths equal, and prefill logits equal the f32
+    cache's (prefill attends the fresh k / v)."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    cfg = _small_lm("bfloat16")
+    p, _ = M.init_model(0, cfg, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 24)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = tree.map(lambda x: x.to(dev), p)
+        c8 = M.make_caches(cfg, 3, 32, quantized_kv=True, device=dev)
+        c8, l8 = M.prefill(cfg, pd, {"tokens": toks.to(dev)}, c8)
+        c32 = M.make_caches(cfg, 3, 32, torch.float32, device=dev)
+        _, l32 = M.prefill(cfg, pd, {"tokens": toks.to(dev)}, c32)
+        assert torch.equal(l8, l32)
+        assert c8.k.dtype == torch.int8 and c8.k.device.type == \
+            torch.device(dev).type
+        out[dev] = [x.cpu() for x in c8]
+    for i, (a, b) in enumerate(zip(out[cuda], out["cpu"])):
+        if a.dtype == torch.int8:
+            assert (a.int() - b.int()).abs().max() <= 1, i
+        elif i == 2:
+            assert torch.equal(a, b)
+        else:
+            assert (a - b).abs().max() <= 2e-2 * b.abs().max(), i
