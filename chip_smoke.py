@@ -122,7 +122,9 @@ It runs every phase, in order, each printing one JSON line:
                  card to the port's CPU path (2 layers, f32, prompts of
                  at most 128 tokens, 8 new tokens: logits within 1e-5,
                  tokens up to the first step whose top-2 margin is under
-                 it), (b) a decode step to a prefill (bf16, 2e-2), (c)
+                 it), (b) a decode step to a prefill, request by
+                 request (bf16, 2e-2; also at 4 and 8 layers, and at 16
+                 with the weights in f32, 3e-5), (c)
                  int8 to f32 caches (prefill logits, the first token),
                  (d) Engine.generate to a manual prefill + decode_step
                  loop, (e) the same draws giving the same tokens, each
@@ -130,15 +132,54 @@ It runs every phase, in order, each printing one JSON line:
                  and prints the prefill seconds, the decode seconds a
                  step, tokens/s, peak memory and a decode step's bytes
                  against its bound;
- 15. profile  -- each path call again (and the DPP chain and the greedy
+ 15. moe      -- the MoE family served: llama4-maverick (d_model 5120,
+                 40 / 8 heads of 128, d_ff 8192, 128 experts top-1 with a
+                 shared expert, vocab 202048) cut to one unit (a dense
+                 block, then a MoE block: 2 of 48 layers, 18.55e9
+                 parameters), then arctic (d_model 7168, 56 / 8 heads,
+                 d_ff 4864, 128 experts top-2 with a dense residual, vocab
+                 32000) cut to 1 of 35 layers, both bf16 with parameters
+                 from the seed, each served by Engine.generate: 8
+                 requests of 512-1024 prompt tokens (the longest 1024:
+                 two groups of 4096 tokens), 32 new tokens each, max_seq
+                 1056, the default f32 cache; it holds (a) the card to the
+                 port's CPU path (2 layers, 8 experts, f32, prompts of at
+                 most 128 tokens, 8 new tokens: logits within 1e-5 and
+                 dispatch masks equal up to the first step whose router
+                 gap is under it, tokens up to the first router or logit
+                 gap under it), (b) a decode step to a prefill (bf16,
+                 2e-2) for every request whose last prompt token kept its
+                 expert slots (and prints how many did not; this holds
+                 for a one-unit cut only, which it asserts), and for two
+                 requests whose prefills, of T - 1 and of T tokens, each
+                 run alone at a capacity that drops nothing (cap = g),
+                 (d) Engine.generate to a manual loop, (f) no kernel
+                 launched; and prints the prefill's groups, capacity and
+                 dropped share, its router inputs' cosine to their
+                 group's mean beside the embedded prompt tokens', the
+                 prefill seconds, the decode seconds a
+                 step, tokens/s, peak memory and a decode step's bytes
+                 as written (every expert, the unembedding table's f32
+                 cast) and as needed (the chosen experts) against 3.35
+                 TB/s;
+ 16. ssm      -- the SSM family served: falcon-mamba-7b at full width and
+                 depth (64 mamba1 layers, d_model 4096, d_inner 8192,
+                 state 16, conv 4, vocab 65024, bf16), the same traffic
+                 and checks (a) (2 layers), (b) (every request; bf16 at
+                 16, 32 and 64 layers, within 2e-2 sqrt(layers / 16),
+                 and the 64 layers with the weights in f32, 3e-5), (d),
+                 (f), and the same prints;
+ 17. profile  -- each path call again (and the DPP chain and the greedy
                  MAP call on 'pallas', with K1's share, the serve-dense
-                 flushes on 'pallas' and 'fused', and the generate
-                 phase's prefill and one decode step), warm: host
+                 flushes on 'pallas' and 'fused', the generate phase's
+                 prefill and one decode step, and the same two calls of
+                 llama4 cut as the moe phase cuts it and of
+                 falcon-mamba-7b), warm: host
                  seconds beside the device time of every kernel it
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 16. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 18. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -171,7 +212,7 @@ except ImportError:  # no PyTorch at all: nothing to drive
 
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
           "bilinear", "apps", "serve", "sharded", "attention", "coo",
-          "train", "generate", "profile", "yardsticks")
+          "train", "generate", "moe", "ssm", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -330,23 +371,45 @@ TRAIN_CUT = 2
 # rounding. (f) resumed losses against the uninterrupted run's.
 TRAIN_TOL = {"cpu": 1e-5, "bf16": 2e-2, "f32": 1e-5, "resume": 1e-6}
 BF16_PEAK = 989e12   # dense bf16 FLOP/s of one H100 SXM (data sheet)
-# The serving path of the LM (generate phase): olmo-1b as the train phase
-# builds it, served by the Engine: GEN["requests"] prompts with lengths
-# drawn from the seed in [prompt_lo, prompt_hi], left-padded to the
-# longest, GEN["new"] tokens each, max_seq GEN["max_seq"]; runs with the
-# Engine's default f32 cache, an int8 cache and one at temperature
-# GEN["temperature"] (draws from a seeded generator). GEN_CUT is check
-# (a)'s cut: GEN_CUT["layers"] layers at full width in f32, prompts of at
-# most GEN_CUT["prompt"] tokens, GEN_CUT["new"] new tokens, on the card
-# and on the CPU.
+# The LM served on the card (the generate, moe and ssm phases): a model at
+# its published widths, cut in depth only, bf16, served by the Engine with
+# its default f32 cache: `requests` prompts of prompt_lo..prompt_hi tokens
+# from the seed, left-padded to the longest, `new` tokens each, max_seq
+# `max_seq`. GEN is olmo-1b's traffic (generate phase; also an int8 cache
+# and a run at temperature `temperature`, draws from a seeded generator);
+# LM the moe and ssm phases' (the longest prompt exactly prompt_hi: 8 x
+# 1024 tokens make two groups of 4096, the capacity of a full group).
+# MOE_ARCHS cuts llama4 to one unit (a dense block then a MoE block) and
+# arctic to one MoE layer; falcon-mamba runs whole. LM_CUT is check (a)'s
+# cut: LM_CUT["layers"] layers (and at most LM_CUT["experts"] experts) in
+# f32, prompts of at most LM_CUT["prompt"] tokens, LM_CUT["new"] new
+# tokens, on the card and on the CPU.
 GEN = dict(requests=8, prompt_lo=512, prompt_hi=1024, new=64, max_seq=1152,
            temperature=0.8)
-GEN_CUT = dict(layers=2, prompt=128, new=8)
+MOE_ARCHS = (("llama4-maverick-400b-a17b", 2), ("arctic-480b", 1))
+SSM_ARCH = ("falcon-mamba-7b", 64)
+LM = dict(requests=8, prompt_lo=512, prompt_hi=1024, new=32, max_seq=1056)
+LM_CUT = dict(layers=2, experts=8, prompt=128, new=8)
 # (a) f32 on the card against f32 on the CPU (another summation order,
-# TF32 off); (b) a decode step against a prefill, bf16 weights (the
-# reference's own test bound, tests/test_models.py); (c) int8 against f32
-# caches: prefill attends the fresh k / v, so only the caches differ.
-GEN_TOL = {"cpu": 1e-5, "decode": 2e-2, "int8": 1e-4}
+# TF32 off; also the router's top-(k+1) gaps); (b) a decode step against a
+# prefill: "decode" bf16 weights up to 16 layers (the reference's own test
+# bound, tests/test_models.py; deeper stacks: decode_tol), "decode_f32" the
+# same weights in f32 at full depth, 10x the largest reading on the H100
+# (3.1e-6, falcon-mamba's 64 layers; a decode fault reads 0.4 and more,
+# PERF.md); (c) int8 against f32 caches: prefill attends the fresh k / v,
+# so only the caches differ.
+LM_TOL = {"cpu": 1e-5, "decode": 2e-2, "decode_f32": 3e-5, "int8": 1e-4}
+# (b)'s requests prefilled alone at a capacity that drops nothing
+LM_NODROP = (0, 7)
+
+
+def decode_tol(layers: int) -> float:
+    """(b)'s limit for bf16 weights in a stack of ``layers``: LM_TOL's up
+    to 16 layers, then growing as sqrt(layers / 16), as the roundings of
+    independent layers add. On the H100 (b) read 1.05e-2, 1.72e-2 and
+    1.95e-2 at 16, 32 and 64 of falcon-mamba's layers, 3.1e-6 with the
+    same weights in f32 (PERF.md, the depth sweep of (b))."""
+    return LM_TOL["decode"] * max(1.0, layers / 16) ** 0.5
 
 
 def emit(obj) -> None:
@@ -853,6 +916,59 @@ def sharded_rank(rank: int, world: int, backend: str, calls,
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
+
+
+class RouteLog:
+    """While active, records each MoE routing call (``moe._route``) as a
+    summary on the host: the group, its count and the capacity, the most
+    (token, choice) pairs routed to one expert of one group and the fewest
+    experts a group routes to, the slots each token kept (flat over
+    (batch, time)), how many experts took a token, the closest pair among
+    each token's top-(k+1) router probabilities, the mean and the least
+    cosine between a token's router input and its group's mean input, and
+    with ``masks`` the dispatch mask as a bool tensor."""
+
+    def __init__(self, masks: bool = False):
+        self.masks = masks
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._route
+
+        def recording(cfg, p, x, **kw):
+            r = self.real(cfg, p, x, **kw)
+            xg = x.reshape(-1, r.group, x.shape[-1]).to(torch.float32)
+            cos = torch.nn.functional.cosine_similarity(
+                xg, xg.mean(dim=1, keepdim=True), dim=-1)
+            del xg
+            top = torch.topk(r.probs, min(cfg.moe_top_k + 1,
+                                          cfg.moe_experts), dim=-1)
+            chosen = torch.nn.functional.one_hot(
+                top.indices[..., :cfg.moe_top_k], cfg.moe_experts).sum(
+                dim=(1, 2))                        # (n, E) tokens routed
+            top = top.values
+            rec = {"group": r.group, "cap": r.cap,
+                   "groups": r.dispatch.shape[0],
+                   "load_max": int(chosen.max()),
+                   "experts_chosen": int((chosen > 0).sum(dim=1).min()),
+                   "kept": r.dispatch.sum(dim=(2, 3)).reshape(-1).to(
+                       torch.int64).cpu().numpy(),
+                   "experts_used": int((r.dispatch.sum(dim=(0, 1, 3)) > 0)
+                                       .sum()),
+                   "margin": float((top[..., :-1] - top[..., 1:]).min()),
+                   "input_cos_mean": float(cos.mean()),
+                   "input_cos_min": float(cos.min())}
+            if self.masks:
+                rec["mask"] = (r.dispatch > 0).cpu()
+            self.calls.append(rec)
+            return r
+
+        moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
 
 
 class Smoke:
@@ -2987,15 +3103,19 @@ class Smoke:
             from repro_torch.models import model as M
             t0 = time.perf_counter()
             cfg = self.train_config()
+            if cfg.name == "olmo-1b":
+                assert cfg.param_count() == 1_176_764_416
             params, _ = M.init_model(SEED, cfg, device=self.dev)
             rng = np.random.default_rng(SEED + 11)
             lens = rng.integers(GEN["prompt_lo"], GEN["prompt_hi"] + 1,
                                 GEN["requests"])
             prompts = [rng.integers(1, cfg.vocab - 1, n).astype(np.int32)
                        for n in lens]
+            init_s = time.perf_counter() - t0
             self.gen = dict(cfg=cfg, params=params, prompts=prompts,
-                            padded=left_pad(prompts), rng=rng)
-            self.setup_s["generate problem"] = time.perf_counter() - t0
+                            padded=left_pad(prompts), rng=rng, init_s=init_s,
+                            cut="none: every layer at its published width")
+            self.setup_s["generate problem"] = init_s
         return self.gen
 
     def gen_manual(self, cfg, params, padded, new, s_max, dev, *,
@@ -3027,15 +3147,15 @@ class Smoke:
                                        device=dev)})
         return np.stack(toks, 1), seen
 
-    def gen_engine(self, cfg, params, prompts, *, quantized=False,
-                   temperature=0.0, gumbel=None):
+    def gen_engine(self, cfg, params, prompts, *, new, max_seq,
+                   quantized=False, temperature=0.0, gumbel=None):
         """``Engine.generate`` over ``prompts`` with each prefill and decode
         call timed (synchronised before and after) and each step's logits
         kept (on the card): (tokens (B, new), prefill seconds, decode
         seconds a step, logits, wall seconds)."""
         from repro_torch.serve import Engine, Request
         eng = Engine(cfg, params, max_batch=len(prompts),
-                     max_seq=GEN["max_seq"], quantized_kv=quantized,
+                     max_seq=max_seq, quantized_kv=quantized,
                      gumbel=gumbel)
         pre_s, dec_s, logits = [], [], []
 
@@ -3058,7 +3178,7 @@ class Smoke:
         eng._prefill = timed(eng._prefill, pre_s)
         eng._decode = timed(eng._decode, dec_s)
         eng._sample = sample
-        reqs = [Request(prompt=p, max_new_tokens=GEN["new"],
+        reqs = [Request(prompt=p, max_new_tokens=new,
                         temperature=temperature) for p in prompts]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3069,76 +3189,31 @@ class Smoke:
 
     def phase_generate(self):
         """The LM's serving path on the card: olmo-1b at full width (bf16)
-        served by ``Engine.generate``; checks (a)-(f) of the module
-        docstring, the prefill and decode times, tokens/s, peak memory
-        and a decode step's bytes against its bound. No kernel of the
-        port lies on this path: every launch counter must read 0."""
-        from repro_torch import tree
-        from repro_torch.kernels import LAUNCHES, reset_launches
-        from repro_torch.models import model as M
-        t_phase = time.perf_counter()
+        served by ``Engine.generate`` through ``lm_serve``: checks (a)-(f)
+        of the module docstring, (c) and (e) this phase's own. No kernel of
+        the port lies on this path: every launch counter must read 0."""
+        from repro_torch.kernels import reset_launches
         reset_launches()
-        g = self.gen_problem()
-        cfg, params, prompts, padded = (g["cfg"], g["params"], g["prompts"],
-                                        g["padded"])
-        b, t = padded.shape
-        new = GEN["new"]
-        if cfg.name == "olmo-1b":
-            assert cfg.param_count() == 1_176_764_416
-        line = {"phase": "generate", "arch": cfg.name,
-                "layers": cfg.n_layers, "d_model": cfg.d_model,
-                "dtype": cfg.dtype, "param_count": cfg.param_count(),
-                "requests": b, "prompt_lens": [len(p) for p in prompts],
-                "padded_len": t, "new_tokens": new,
-                "max_seq": GEN["max_seq"], "tol": GEN_TOL,
-                "nvidia_smi": nvidia_smi()}
+        self.lm_serve("generate", self.gen_problem(), GEN,
+                      extra=self.gen_int8_and_temperature)
 
-        # (d) a manual greedy loop (which also warms the shapes), then the
-        # Engine's default f32 cache, timed
-        man, _ = self.gen_manual(cfg, params, padded, new, GEN["max_seq"],
-                                 self.dev)
-        torch.cuda.reset_peak_memory_stats()
-        tok32, pre_s, dec_s, lg32, wall = self.gen_engine(cfg, params,
-                                                          prompts)
-        peak = torch.cuda.max_memory_allocated()
-        line["d_equal"] = bool(np.array_equal(tok32, man))
-        assert line["d_equal"], "(d) Engine.generate, the manual loop"
-        step_s = float(np.median(dec_s[1:]))
-        p_bytes = sum(x.numel() * x.element_size()
-                      for x in tree.leaves(params))
-        kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim_ * 4
-        # the least a decode step must move: every parameter once, the
-        # cache's filled rows (mean over the run's steps), the logits
-        filled = t + new / 2
-        need = p_bytes + kv_row * filled + b * cfg.vocab * 4
-        # what the step moves as written: the whole cache, and the tied
-        # table cast to f32 (read bf16, write and read f32)
-        table = cfg.vocab * cfg.d_model
-        as_run = p_bytes + kv_row * GEN["max_seq"] + table * (2 + 4 + 4)
-        line.update(
-            prefill_s=pre_s, decode_step_s=dec_s,
-            decode_s_per_step=step_s, decode_tokens_per_s=b / step_s,
-            e2e_tokens_per_s=b * new / wall, run_wall_s=wall,
-            max_memory_allocated=peak, step_bytes_needed=need,
-            step_bound_ms=need / PEAK_BYTES * 1e3,
-            step_bound_share=need / PEAK_BYTES / step_s,
-            step_bytes_as_run=as_run,
-            step_as_run_ms=as_run / PEAK_BYTES * 1e3,
-            step_as_run_share=as_run / PEAK_BYTES / step_s)
-
-        # (c) int8 caches against f32
+    def gen_int8_and_temperature(self, g, tok32, lg32, line):
+        """The generate phase's own checks on its Engine run (``tok32``,
+        ``lg32``: the f32 cache's tokens and each step's logits): (c) int8
+        caches against f32, (e) temperature: the same draws twice, and
+        each step's token the argmax of logits / T + g recomputed from
+        what it saw."""
+        cfg, params, prompts = g["cfg"], g["params"], g["prompts"]
+        run = dict(new=GEN["new"], max_seq=GEN["max_seq"])
         tok8, _, _, lg8, _ = self.gen_engine(cfg, params, prompts,
-                                             quantized=True)
+                                             quantized=True, **run)
         line["c_prefill_rel"] = errors([lg8[0]], [lg32[0]])[1]
         line["c_first_token_equal"] = bool(np.array_equal(tok8[:, 0],
                                                           tok32[:, 0]))
         line["c_token_share_equal"] = float(np.mean(tok8 == tok32))
-        assert line["c_prefill_rel"] <= GEN_TOL["int8"], "(c) prefill"
+        assert line["c_prefill_rel"] <= LM_TOL["int8"], "(c) prefill"
         assert line["c_first_token_equal"], "(c) first token"
         del lg8
-
-        # (e) temperature: the same draws twice, and each step's token
-        # the argmax of logits / T + g recomputed from what it saw
         temp = GEN["temperature"]
         runs = []
         for _ in range(2):
@@ -3153,7 +3228,7 @@ class Smoke:
 
             tok, _, _, lg, _ = self.gen_engine(cfg, params, prompts,
                                                temperature=temp,
-                                               gumbel=gumbel)
+                                               gumbel=gumbel, **run)
             runs.append((tok, lg, drawn))
         (tok_t, lg_t, dr_t), (tok_u, _, _) = runs
         again = np.stack([torch.argmax(lg / temp + x, dim=-1).cpu().numpy()
@@ -3164,103 +3239,425 @@ class Smoke:
                                                              tok32)))
         assert line["e_same_twice"], "(e) the same draws, other tokens"
         assert line["e_recomputed_equal"], "(e) argmax(logits / T + g)"
-        del runs, lg_t, dr_t, lg32
-
-        # (b) a decode step against a prefill, full width, bf16 weights
-        toks = torch.as_tensor(padded, device=self.dev)
-        c_full = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
-        _, l_full = M.prefill(cfg, params, {"tokens": toks}, c_full)
-        c_part = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
-        c_part, _ = M.prefill(cfg, params, {"tokens": toks[:, :-1]}, c_part)
-        _, l_dec = M.decode_step(cfg, params, c_part, {
-            "tokens": toks[:, -1:],
-            "position": torch.full((1,), t - 1, dtype=torch.int32,
-                                   device=self.dev)})
-        line["b_rel"] = errors([l_dec], [l_full])[1]
-        assert line["b_rel"] <= GEN_TOL["decode"], f"(b) {line['b_rel']}"
-        del c_full, c_part
-
-        self.gen_cpu_parity(cfg, line)
-        launches = dict(LAUNCHES)
-        line["launches"] = launches
-        line["seconds"] = time.perf_counter() - t_phase
-        emit(line)
-        # (f) nothing of this path runs a port kernel
-        assert not any(launches.values()), \
-            f"the serving path launched port kernels: {launches}"
-
-    def gen_cpu_parity(self, cfg, line):
-        """(a) GEN_CUT["layers"] layers at full width in f32: the card's
-        greedy loop against the port's CPU path fed the card's tokens, on
-        prompts cut to at most GEN_CUT["prompt"] tokens."""
-        from repro_torch import tree
-        from repro_torch.models import model as M
-        g = self.gen
-        cut = dataclasses.replace(cfg, n_layers=GEN_CUT["layers"],
-                                  dtype="float32")
-        params, _ = M.init_model(SEED, cut, device="cpu")
-        lens = g["rng"].integers(GEN_CUT["prompt"] // 2,
-                                 GEN_CUT["prompt"] + 1, len(g["prompts"]))
-        padded = left_pad([p[:n] for p, n in zip(g["prompts"], lens)])
-        new = GEN_CUT["new"]
-        s_max = padded.shape[1] + new
-        t0 = time.perf_counter()
-        tok_dev, lg_dev = self.gen_manual(
-            cut, tree.map(lambda x: x.to(self.dev), params), padded, new,
-            s_max, self.dev)
-        dev_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tok_cpu, lg_cpu = self.gen_manual(cut, params, padded, new, s_max,
-                                          torch.device("cpu"),
-                                          forced=tok_dev)
-        cpu_s = time.perf_counter() - t0
-        tol = GEN_TOL["cpu"]
-        rel = [errors([a], [c])[1] for a, c in zip(lg_dev, lg_cpu)]
-        # the first step whose top-2 margin (of any request) lies under
-        # the tolerance: the tokens may part from there on
-        close = None
-        for step, lg in enumerate(lg_dev):
-            top = torch.topk(lg.double(), 2, dim=-1).values
-            margin = float((top[:, 0] - top[:, 1]).min()
-                           / lg.double().abs().max())
-            if margin < tol:
-                close = step
-                break
-        upto = new if close is None else close
-        line.update(a_prompt_lens=lens.tolist(), a_logits_rel=rel,
-                    a_first_close_step=close,
-                    a_tokens_equal_to_close=bool(np.array_equal(
-                        tok_dev[:, :upto], tok_cpu[:, :upto])),
-                    a_card_s=dev_s, a_cpu_s=cpu_s)
-        print(f"generate (a): first step under the top-2 margin: {close}",
-              flush=True)
-        assert max(rel) <= tol, f"(a) logits {rel}"
-        assert line["a_tokens_equal_to_close"], "(a) tokens"
 
     def gen_profiled(self) -> dict:
-        """The generate phase's prefill and one decode step (at the padded
-        prompt's length), each on its own f32 cache reset before the
-        call, for the profile phase."""
-        from repro_torch.models import model as M
+        """The generate phase's prefill and one decode step, for the
+        profile phase."""
         g = self.gen_problem()
-        cfg, params = g["cfg"], g["params"]
-        b, t = g["padded"].shape
-        toks = torch.as_tensor(g["padded"], device=self.dev)
-        caches = M.make_caches(cfg, b, GEN["max_seq"], torch.float32,
+        return self.lm_profiled("generate", g["cfg"], g["params"],
+                                g["padded"], GEN["max_seq"])
+
+    def lm_profiled(self, label, cfg, params, padded, max_seq) -> dict:
+        """A prefill of ``padded`` and one decode step (at its length), each
+        on its own f32 caches reset before the call, for the profile
+        phase."""
+        from repro_torch.models import model as M
+        b, t = padded.shape
+        toks = torch.as_tensor(padded, device=self.dev)
+        caches = M.make_caches(cfg, b, max_seq, torch.float32,
                                device=self.dev)
+        parts = list(caches.values()) if isinstance(caches, dict) \
+            else [caches]
         dec = {"tokens": toks[:, -1:],
                "position": torch.full((1,), t, dtype=torch.int32,
                                       device=self.dev)}
 
         def prefill():
-            caches.length.zero_()
+            for c in parts:
+                for leaf in c:
+                    if leaf is not None:
+                        leaf.zero_()
             return M.prefill(cfg, params, {"tokens": toks}, caches)[1]
 
         def decode():
-            caches.length.fill_(t)
+            for c in parts:
+                if hasattr(c, "length"):
+                    c.length.fill_(t)
             return M.decode_step(cfg, params, caches, dec)[1]
 
-        return {"generate prefill": prefill, "generate decode step": decode}
+        return {f"{label} prefill": prefill,
+                f"{label} decode step": decode}
+
+    # -- the MoE and SSM families ------------------------------------------
+
+    def free_lm(self, what) -> None:
+        """Drop the models and caches an earlier phase holds, and print the
+        card's free memory."""
+        import gc
+        self.gen = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"{what}: {free / 2**30:.2f} GiB free of {total / 2**30:.2f}",
+              flush=True)
+
+    def lm_problem(self, name, layers):
+        """``name`` at its published widths cut to ``layers`` layers (bf16),
+        its parameters drawn on the card from SEED, and LM's traffic: the
+        same prompts for every model (tokens under arctic's vocab of
+        32000, the smallest)."""
+        from repro_torch.configs import get_arch
+        from repro_torch.models import model as M
+        t0 = time.perf_counter()
+        published = get_arch(name)
+        cfg = dataclasses.replace(published, n_layers=layers)
+        params, _ = M.init_model(SEED, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 13)
+        lens = rng.integers(LM["prompt_lo"], LM["prompt_hi"] + 1,
+                            LM["requests"])
+        lens[np.argmax(lens)] = LM["prompt_hi"]
+        prompts = [rng.integers(1, min(cfg.vocab, 32000) - 1, n).astype(
+            np.int32) for n in lens]
+        self.setup_s[f"{name} init"] = init_s
+        return dict(cfg=cfg, params=params, prompts=prompts,
+                    padded=left_pad(prompts), rng=rng, init_s=init_s,
+                    cut=f"depth {layers} of {published.n_layers} layers; "
+                        f"widths as published")
+
+    def lm_bytes(self, cfg, params, b, t, experts_used, traffic) -> dict:
+        """A decode step's bytes, two ways. Both read every non-expert
+        parameter once, the B embedding rows, the caches (KV: the whole
+        f32 cache as written, its filled rows, mean over the run, as
+        needed; SSM: the f32 state and conv carry, read and written) and
+        write the f32 logits. "As written" reads every expert (the dense
+        einsum dispatch) and casts the unembedding table to f32 (read bf16,
+        write and read f32: 10 bytes an entry); "needed" reads the experts
+        the step's tokens chose (``experts_used``: the mean count a MoE
+        layer) and the table once in bf16."""
+        from repro_torch import tree
+        esz = 2 if cfg.dtype == "bfloat16" else 4
+        total = sum(x.numel() * x.element_size() for x in tree.leaves(params))
+        experts = 0
+        if cfg.family == "moe":
+            for unit in params["units"].values():
+                if "moe" in unit:
+                    experts += sum(unit["moe"][k].numel() * esz
+                                   for k in ("wi", "wg", "wo")
+                                   if k in unit["moe"])
+        n_moe = cfg.n_layers // cfg.moe_every if cfg.family == "moe" else 0
+        vocab_d = cfg.vocab * cfg.d_model
+        tables = vocab_d * esz * (1 if cfg.tie_embeddings else 2)
+        rest = total - experts - tables + b * cfg.d_model * esz
+        logits = b * cfg.vocab * 4
+        if cfg.family == "ssm":
+            di = cfg.ssm_expand * cfg.d_model
+            cache = 2 * cfg.n_layers * b * di * (cfg.ssm_state
+                                                 + cfg.ssm_conv - 1) * 4
+            cache_all = cache
+        else:
+            row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim_ * 4
+            cache = row * (t + traffic["new"] / 2)
+            cache_all = row * traffic["max_seq"]
+        per_expert = experts / max(n_moe, 1) / max(cfg.moe_experts, 1)
+        used = per_expert * experts_used * n_moe
+        written = rest + experts + vocab_d * 10 + cache_all + logits
+        needed = rest + used + vocab_d * esz + cache + logits
+        return dict(step_bytes_as_written=written,
+                    step_bytes_needed=needed, moe_layers=n_moe,
+                    experts_used_mean=experts_used,
+                    step_as_written_ms=written / PEAK_BYTES * 1e3,
+                    step_needed_ms=needed / PEAK_BYTES * 1e3)
+
+    def phase_moe(self):
+        """The MoE family served on the card: llama4-maverick (one unit:
+        a dense block, then a MoE block) and arctic (one MoE layer) at
+        their published widths, bf16, through ``lm_serve``: checks (a),
+        (b), (d), (f) of the module docstring, the prefill's groups,
+        capacity and dropped share, and a decode step's bytes as written
+        and as needed."""
+        from repro_torch.kernels import reset_launches
+        self.free_lm("moe")
+        reset_launches()
+        for name, layers in MOE_ARCHS:
+            self.lm_serve("moe", self.lm_problem(name, layers), LM)
+
+    def phase_ssm(self):
+        """The SSM family served on the card: falcon-mamba-7b at full width
+        and depth, bf16, through ``lm_serve``: checks (a), (b), (d), (f)."""
+        from repro_torch.kernels import reset_launches
+        self.free_lm("ssm")
+        reset_launches()
+        self.lm_serve("ssm", self.lm_problem(*SSM_ARCH), LM)
+
+    def lm_serve(self, phase, g, traffic, extra=None) -> None:
+        """One model of ``g`` (``gen_problem``, ``lm_problem``) served on the
+        card with ``traffic`` (GEN, LM): (d) a manual greedy loop (which
+        also warms the shapes), then ``Engine.generate`` with the default
+        f32 cache, timed; the MoE prefill's routes (``lm_routes``); a
+        decode step's bytes; ``extra(g, tokens, logits, line)``, the
+        phase's own checks on the Engine run; (b) (``lm_decode_check``);
+        (a) (``lm_cpu_parity``); (f) no port kernel launched since the
+        phase reset the counts. The line is printed before a failed check
+        raises. The model is freed at the end."""
+        from repro_torch import tree
+        from repro_torch.kernels import LAUNCHES
+        t_phase = time.perf_counter()
+        cfg, params, prompts, padded = (g["cfg"], g["params"], g["prompts"],
+                                        g["padded"])
+        b, t = padded.shape
+        new, max_seq = traffic["new"], traffic["max_seq"]
+        line = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+                "cut": g["cut"], "d_model": cfg.d_model, "dtype": cfg.dtype,
+                "params": sum(x.numel() for x in tree.leaves(params)),
+                "init_s": g["init_s"], "requests": b,
+                "prompt_lens": [len(p) for p in prompts], "padded_len": t,
+                "new_tokens": new, "max_seq": max_seq, "tol": LM_TOL,
+                "nvidia_smi": nvidia_smi()}
+        if cfg.family == "moe":
+            line.update(experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                        capacity_factor=cfg.moe_capacity_factor)
+        try:
+            with RouteLog() as log:
+                man, _ = self.gen_manual(cfg, params, padded, new, max_seq,
+                                         self.dev)
+            torch.cuda.reset_peak_memory_stats()
+            tok, pre_s, dec_s, lg, wall = self.gen_engine(
+                cfg, params, prompts, new=new, max_seq=max_seq)
+            peak = torch.cuda.max_memory_allocated()
+            line["d_equal"] = bool(np.array_equal(tok, man))
+            step_s = float(np.median(dec_s[1:]))
+            used = self.lm_routes(cfg, params, padded, new, log.calls,
+                                  line) if cfg.family == "moe" else 0.0
+            line.update(self.lm_bytes(cfg, params, b, t, used, traffic))
+            line.update(
+                prefill_s=pre_s, decode_step_s=dec_s,
+                decode_s_per_step=step_s, decode_tokens_per_s=b / step_s,
+                e2e_tokens_per_s=b * new / wall, run_wall_s=wall,
+                max_memory_allocated=peak,
+                step_as_written_share=line["step_as_written_ms"] / 1e3
+                / step_s,
+                step_needed_share=line["step_needed_ms"] / 1e3 / step_s)
+            if extra is not None:
+                extra(g, tok, lg, line)
+            del lg
+            self.lm_decode_check(cfg, params, padded, line)
+            self.lm_cpu_parity(cfg, g, line)
+        except BaseException as exc:   # print what was measured, then fail
+            line.update(failed=repr(exc), launches=dict(LAUNCHES))
+            emit(line)
+            raise
+        line["seconds"] = time.perf_counter() - t_phase
+        line["launches"] = dict(LAUNCHES)
+        emit(line)
+        assert line["d_equal"], "(d) Engine.generate, the manual loop"
+        for key in ("b_rel_kept_max", "b_rel_nodrop_max"):
+            if line.get(key) is not None:
+                assert line[key] <= decode_tol(cfg.n_layers), \
+                    f"(b) {key} {line[key]}"
+        for depth, rel in line.get("b_rel_by_depth", {}).items():
+            assert rel <= decode_tol(depth), f"(b) {depth} layers: {rel}"
+        if "b_rel_f32" in line:
+            assert line["b_rel_f32"] <= LM_TOL["decode_f32"], \
+                f"(b) f32 {line['b_rel_f32']}"
+        assert line.get("b_nodrop_dropped", 0) == 0, "(b) no-drop prefill"
+        assert max(line["a_logits_rel"][:line["a_held_steps"]]) \
+            <= LM_TOL["cpu"], f"(a) logits {line['a_logits_rel']}"
+        assert line["a_masks_equal_to_close"], "(a) dispatch masks"
+        assert line["a_tokens_equal_to_close"], "(a) tokens"
+        assert not any(line["launches"].values()), \
+            f"(f) the serving path launched port kernels: {line['launches']}"
+        del g, params
+        self.free_lm(f"{cfg.name} done")
+
+    def lm_routes(self, cfg, params, padded, new, calls, line) -> float:
+        """From the manual loop's MoE routes (``calls``: each MoE layer's
+        prefill call, then its decode steps'): the prefill's groups,
+        capacity, largest load, dropped share and the cosine of each
+        router input to its group's mean (beside the same for the embedded
+        prompt tokens: the router sees nearly one direction when the
+        blocks' outputs outweigh the embeddings), and the decode steps'
+        capacity and drops. Returns the mean count of experts a decode
+        step's MoE layer reads."""
+        b, t = padded.shape
+        n_moe = max(1, len(calls) // new)
+        pre, dec = calls[:n_moe], calls[n_moe:]
+        kept = sum(int(r["kept"].sum()) for r in pre)
+        emb = params["embed"]["table"][torch.as_tensor(
+            padded, device=self.dev).long()].to(torch.float32)
+        emb = emb.reshape(-1, pre[0]["group"], cfg.d_model)
+        emb_cos = torch.nn.functional.cosine_similarity(
+            emb, emb.mean(dim=1, keepdim=True), dim=-1)
+        line.update(
+            prefill_groups=[r["groups"] for r in pre],
+            prefill_group=pre[0]["group"], prefill_cap=pre[0]["cap"],
+            prefill_load_max=[r["load_max"] for r in pre],
+            prefill_fewest_experts_a_group=[r["experts_chosen"]
+                                            for r in pre],
+            prefill_dropped_share=1 - kept / (n_moe * b * t * cfg.moe_top_k),
+            router_input_cos_mean=[r["input_cos_mean"] for r in pre],
+            router_input_cos_min=[r["input_cos_min"] for r in pre],
+            embedding_cos_mean=float(emb_cos.mean()),
+            embedding_rms=float(emb.pow(2).mean().sqrt()),
+            decode_cap=dec[0]["cap"] if dec else None,
+            decode_dropped=sum(int(r["kept"].size * cfg.moe_top_k
+                                   - r["kept"].sum()) for r in dec))
+        return float(np.mean([r["experts_used"] for r in dec]))
+
+    def decode_vs_prefill(self, cfg, params, toks):
+        """(b)'s two sides for ``toks`` (B, T): the logits of a decode step
+        at T - 1 on the f32 caches of a prefill of ``toks[:, :-1]``, the
+        last-token logits of a prefill of ``toks``, and the MoE routes of
+        the two prefills (RouteLog calls)."""
+        from repro_torch.models import model as M
+        b, t = toks.shape
+        caches = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
+        with RouteLog() as part:
+            caches, _ = M.prefill(cfg, params, {"tokens": toks[:, :-1]},
+                                  caches)
+        _, l_dec = M.decode_step(cfg, params, caches, {
+            "tokens": toks[:, -1:],
+            "position": torch.full((1,), t - 1, dtype=torch.int32,
+                                   device=self.dev)})
+        del caches
+        caches = M.make_caches(cfg, b, t, torch.float32, device=self.dev)
+        with RouteLog() as full:
+            _, l_full = M.prefill(cfg, params, {"tokens": toks}, caches)
+        return l_dec, l_full, part.calls, full.calls
+
+    def lm_decode_check(self, cfg, params, padded, line) -> None:
+        """(b) a decode step against a prefill, request by request, in the
+        model's dtype: every request whose last prompt token kept its
+        expert slots in the batch's prefill; for a MoE model also the
+        LM_NODROP requests, each with both prefills run alone at a
+        capacity that drops nothing; for a stack of blocks (dense, SSM)
+        also its first quarter and half, and the whole stack with the
+        weights cast to f32."""
+        from repro_torch import tree
+        toks = torch.as_tensor(padded, device=self.dev)
+        b, t = toks.shape
+
+        def rel(l_dec, l_full):
+            return [errors([l_dec[i]], [l_full[i]])[1]
+                    for i in range(l_dec.shape[0])]
+
+        l_dec, l_full, _, full = self.decode_vs_prefill(cfg, params, toks)
+        kept = np.ones(b, bool)
+        for r in full:
+            kept &= r["kept"].reshape(b, t)[:, -1] == cfg.moe_top_k
+        got = rel(l_dec, l_full)
+        line.update(b_rel=got, b_last_token_dropped=int((~kept).sum()),
+                    b_rel_kept_max=max([r for r, k in zip(got, kept) if k],
+                                       default=None))
+        del l_dec, l_full
+        print(f"{cfg.name} (b): {int((~kept).sum())} of {b} requests' last "
+              f"tokens lost a slot in the prefill", flush=True)
+        if cfg.family == "moe":
+            # At the batch's capacity the decode reads caches written by a
+            # prefill of T - 1 tokens, whose groups and drops differ from
+            # the T-token prefill's. Those caches agree only while no
+            # attention reads a MoE block's output: in a one-unit cut the
+            # MoE block is the stack's last sub-block and feeds the logits
+            # alone. A deeper cut is held by the no-drop requests only.
+            assert cfg.n_layers == cfg.moe_every, \
+                "(b) at the batch's capacity holds for a one-unit cut only"
+            # alone, at capacity factor E / k: cap = g, no drop in either
+            # prefill (the reference's dispatch is (n, g, E, cap): 8 x 1024
+            # tokens at cap = g would be 2e10 entries)
+            free = dataclasses.replace(
+                cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+            nodrop, dropped, caps = [], 0, []
+            for i in LM_NODROP:
+                l_dec, l_full, part, full = self.decode_vs_prefill(
+                    free, params, toks[i:i + 1])
+                dropped += sum(int(r["kept"].size * cfg.moe_top_k
+                                   - r["kept"].sum()) for r in part + full)
+                caps.append([part[0]["cap"], full[0]["cap"]])
+                nodrop.extend(rel(l_dec, l_full))
+                del l_dec, l_full
+            line.update(b_nodrop_requests=list(LM_NODROP),
+                        b_nodrop_caps=caps, b_nodrop_dropped=dropped,
+                        b_rel_nodrop=nodrop, b_rel_nodrop_max=max(nodrop))
+        if "blocks" in params:
+            # bf16 rounding grows with the depth; a fault of the decode
+            # path does not vanish in f32
+            by_depth = {}
+            for depth in sorted({max(1, cfg.n_layers // 4),
+                                 max(1, cfg.n_layers // 2)} - {cfg.n_layers}):
+                cut = dataclasses.replace(cfg, n_layers=depth)
+                head = dict(params, blocks=tree.map(lambda x: x[:depth],
+                                                    params["blocks"]))
+                l_dec, l_full, _, _ = self.decode_vs_prefill(cut, head, toks)
+                by_depth[depth] = max(rel(l_dec, l_full))
+                del l_dec, l_full, head
+            by_depth[cfg.n_layers] = max(got)
+            f32 = tree.map(lambda x: x.to(torch.float32), params)
+            l_dec, l_full, _, _ = self.decode_vs_prefill(
+                dataclasses.replace(cfg, dtype="float32"), f32, toks)
+            line.update(b_rel_by_depth=by_depth,
+                        b_rel_f32=max(rel(l_dec, l_full)))
+            del f32, l_dec, l_full
+
+    def lm_cpu_parity(self, cfg, g, line):
+        """(a) LM_CUT["layers"] layers at full width, at most
+        LM_CUT["experts"] experts, in f32: the card's greedy loop against
+        the port's CPU path fed the card's tokens, on prompts cut to at
+        most LM_CUT["prompt"] tokens: logits, and every MoE call's dispatch
+        mask, up to the first step whose router gap (the top-(k+1)
+        probabilities' closest pair) lies under the tolerance; tokens up to
+        the first step whose router or logit top-2 gap does."""
+        from repro_torch import tree
+        from repro_torch.models import model as M
+        cut = dataclasses.replace(
+            cfg, n_layers=LM_CUT["layers"], dtype="float32",
+            moe_experts=min(cfg.moe_experts, LM_CUT["experts"]))
+        t0 = time.perf_counter()
+        params, _ = M.init_model(SEED + 1, cut, device=self.dev)
+        host = tree.map(lambda x: x.cpu(), params)
+        lens = g["rng"].integers(LM_CUT["prompt"] // 2, LM_CUT["prompt"] + 1,
+                                 len(g["prompts"]))
+        padded = left_pad([p[:n] for p, n in zip(g["prompts"], lens)])
+        new = LM_CUT["new"]
+        s_max = padded.shape[1] + new
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with RouteLog(masks=True) as dev_log:
+            tok_dev, lg_dev = self.gen_manual(cut, params, padded, new, s_max,
+                                              self.dev)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with RouteLog(masks=True) as cpu_log:
+            tok_cpu, lg_cpu = self.gen_manual(cut, host, padded, new, s_max,
+                                              torch.device("cpu"),
+                                              forced=tok_dev)
+        cpu_s = time.perf_counter() - t0
+        del params, host
+        tol = LM_TOL["cpu"]
+        rel = [errors([a], [c])[1] for a, c in zip(lg_dev, lg_cpu)]
+        per_step = max(1, len(dev_log.calls) // new)
+        close_router = None
+        for i in range(0, len(dev_log.calls), per_step):
+            if min(r["margin"] for r in dev_log.calls[i:i + per_step]) < tol:
+                close_router = i // per_step
+                break
+        close_logit = None
+        for step, lg in enumerate(lg_dev):
+            top = torch.topk(lg.double(), 2, dim=-1).values
+            if float((top[:, 0] - top[:, 1]).min()
+                     / lg.double().abs().max()) < tol:
+                close_logit = step
+                break
+        upto = min(x for x in (close_router, close_logit, new)
+                   if x is not None)
+        held = new if close_router is None else close_router
+        masks_equal = all(
+            torch.equal(a["mask"], c["mask"]) for a, c in
+            zip(dev_log.calls[:held * per_step],
+                cpu_log.calls[:held * per_step]))
+        line.update(a_layers=cut.n_layers, a_experts=cut.moe_experts,
+                    a_held_steps=held,
+                    a_prompt_lens=lens.tolist(), a_padded=padded.shape[1],
+                    a_new=new, a_logits_rel=rel,
+                    a_first_router_close_step=close_router,
+                    a_first_logit_close_step=close_logit,
+                    a_moe_calls=len(dev_log.calls),
+                    a_masks_equal_to_close=masks_equal,
+                    a_tokens_equal_to_close=bool(np.array_equal(
+                        tok_dev[:, :upto], tok_cpu[:, :upto])),
+                    a_init_s=init_s, a_card_s=dev_s, a_cpu_s=cpu_s)
+        print(f"{cfg.name} (a): router close step {close_router}, logit "
+              f"close step {close_logit}", flush=True)
 
     def phase_profile(self):
         """Where the time goes: for each path call, warm, its host
@@ -3271,7 +3668,7 @@ class Smoke:
         events time. Runs after the path phases, whose launch counts it
         does not touch."""
         from repro_torch.core import BIFSolver, Dense
-        from repro_torch.kernels import LAUNCHES, ops
+        from repro_torch.kernels import ops
         d, sp = self.dense_problem(), self.sparse_problem()
         div = dict(lam_min=d["lmn"], lam_max=d["lmx"])
         siv = dict(lam_min=sp["lmn"], lam_max=sp["lmx"])
@@ -3323,43 +3720,60 @@ class Smoke:
                 lambda b=backend: self.serve_run("dense", b)[2]
         calls.update(self.gen_profiled())
         for what, fn in calls.items():
-            if not what.startswith("trace"):   # the trace phase warmed these
-                fn()
-            res, host_s = self.run_timed(fn)
-            t0 = time.perf_counter()
-            if what.startswith("attention"):
-                # one K7 launch, which the profiler does not record
-                # (PERF.md): CUDA events around the call time that launch
-                before = LAUNCHES["flash_attention"]
-                kernels, dev_from = {}, "cuda events"
-                dev_s = cuda_ms(fn, reps=1, warmup=0) / 1e3
-                assert LAUNCHES["flash_attention"] - before == 1
-            else:
-                kernels = {k: ms for k, (ms, _) in device_kernels(fn).items()}
-                dev_from = "profiler"
-                dev_s = sum(kernels.values()) / 1e3
-                if not kernels:
-                    raise RuntimeError(f"profile: torch.profiler recorded "
-                                       f"no kernel of {what}")
-            prof_s = time.perf_counter() - t0
-            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-            k1_ms = kernels.get("gql_update_kernel", 0.0)
-            emit({"phase": "profile", "call": what,
-                  "k1_share_of_device": k1_ms / 1e3 / dev_s if dev_s else
-                  None,
-                  "iterations_max": iterations_of(res),
-                  "host_s": host_s, "device_s": dev_s,
-                  "device_s_from": dev_from,
-                  "idle_share": 1.0 - dev_s / host_s,
-                  "profiled_call_s": prof_s,
-                  "kernels_ms": dict(top),
-                  # the port's own kernels, whether or not among the top,
-                  # and each one's share of the device time
-                  "port_kernels_ms": {k: ms for k, ms in kernels.items()
-                                      if k in PORT_KERNELS},
-                  "port_kernel_shares": {
-                      k: ms / 1e3 / dev_s for k, ms in kernels.items()
-                      if k in PORT_KERNELS and dev_s}})
+            self.profile_one(what, fn)
+        # the MoE and SSM families' prefill and decode step, a model at a
+        # time (llama4 cut as the moe phase cuts it; falcon-mamba whole)
+        for name, layers in (MOE_ARCHS[0], SSM_ARCH):
+            self.free_lm(f"profile {name}")
+            g = self.lm_problem(name, layers)
+            for what, fn in self.lm_profiled(name, g["cfg"], g["params"],
+                                             g["padded"],
+                                             LM["max_seq"]).items():
+                self.profile_one(what, fn)
+            del g, fn
+        self.free_lm("profile done")
+
+    def profile_one(self, what, fn):
+        """One call of the profile phase: warm (the trace phase warmed its
+        own), its host seconds, then its kernels' device time."""
+        from repro_torch.kernels import LAUNCHES
+        if not what.startswith("trace"):   # the trace phase warmed these
+            fn()
+        res, host_s = self.run_timed(fn)
+        t0 = time.perf_counter()
+        if what.startswith("attention"):
+            # one K7 launch, which the profiler does not record
+            # (PERF.md): CUDA events around the call time that launch
+            before = LAUNCHES["flash_attention"]
+            kernels, dev_from = {}, "cuda events"
+            dev_s = cuda_ms(fn, reps=1, warmup=0) / 1e3
+            assert LAUNCHES["flash_attention"] - before == 1
+        else:
+            kernels = {k: ms for k, (ms, _) in device_kernels(fn).items()}
+            dev_from = "profiler"
+            dev_s = sum(kernels.values()) / 1e3
+            if not kernels:
+                raise RuntimeError(f"profile: torch.profiler recorded "
+                                   f"no kernel of {what}")
+        prof_s = time.perf_counter() - t0
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        k1_ms = kernels.get("gql_update_kernel", 0.0)
+        emit({"phase": "profile", "call": what,
+              "k1_share_of_device": k1_ms / 1e3 / dev_s if dev_s else
+              None,
+              "iterations_max": iterations_of(res),
+              "host_s": host_s, "device_s": dev_s,
+              "device_s_from": dev_from,
+              "idle_share": 1.0 - dev_s / host_s,
+              "profiled_call_s": prof_s,
+              "kernels_ms": dict(top),
+              # the port's own kernels, whether or not among the top,
+              # and each one's share of the device time
+              "port_kernels_ms": {k: ms for k, ms in kernels.items()
+                                  if k in PORT_KERNELS},
+              "port_kernel_shares": {
+                  k: ms / 1e3 / dev_s for k, ms in kernels.items()
+                  if k in PORT_KERNELS and dev_s}})
 
     def phase_yardsticks(self):
         """The library yardsticks (BSR @ dense for K2, K4 and K5; torch.bmm

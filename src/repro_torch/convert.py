@@ -6,11 +6,12 @@ Python metadata (the leaves of an operator or of a
 ``QuadState``/``ChainFactor``/``ChainState``) and return the port's
 operator or state on ``device``; ``request_from_numpy`` builds a
 ``BIFRequest`` whose banked per-lane state (a ``QuadState`` over a 1-D
-``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``. ``params_from_numpy`` / ``params_to_numpy`` and
+``Masked`` mask, ``basis=None``) resumes in a port ``BIFEngine``.
+``params_from_numpy`` / ``params_to_numpy`` and
 ``adamw_state_from_numpy`` carry a model's parameters and its AdamW state
 as numpy leaves in the reference's leaf order, and ``caches_from_numpy``
-/ ``caches_to_numpy`` its stacked KV caches, so a decode resumes in the
-port from caches the reference filled. Whoever holds another
+/ ``caches_to_numpy`` its stacked decode caches (KV or SSM), so a decode
+resumes in the port from caches the reference filled. Whoever holds another
 package's arrays converts them to numpy first, so this module never sees
 them; it is what lets a parity test start two implementations from
 identical states.
@@ -229,37 +230,53 @@ def adamw_state_from_numpy(cfg, leaves, *, device="cuda"):
 
 
 def caches_from_numpy(cfg, leaves, *, device="cuda"):
-    """The port's stacked ``KVCache`` for ``cfg`` from the leaves of the
+    """The port's stacked caches for ``cfg`` from the leaves of the
     reference's (``jax.tree.leaves`` of its ``make_caches`` / ``prefill``
-    caches): ``k``, ``v``, ``length`` (n_layers,), and for an int8 cache
-    ``k_scale``, ``v_scale``. Each leaf keeps its dtype (a bf16 cache
-    stays bf16); ``length`` is int32."""
-    from .models.attention import KVCache
+    caches), in the structure ``model.make_caches`` builds: dense, one
+    ``KVCache`` (``k``, ``v``, ``length`` (n_layers,), and for an int8
+    cache ``k_scale``, ``v_scale``); moe, ``{"sub{i}": KVCache}`` over
+    (n_units,); ssm, one ``SSMCache`` (``conv``, ``state``). Each float
+    leaf keeps its dtype (a bf16 cache stays bf16); ``length`` is int32."""
+    from . import tree
+    from .models import model as _model
 
     dev = _ops.resolve_device(device)
-    leaves = list(leaves)
-    if len(leaves) not in (3, 5):
-        raise ValueError(f"{len(leaves)} leaves; a KVCache has 3 (k, v, "
-                         f"length) or 5 (with the int8 scales)")
-    shape = (cfg.n_layers, None, None, cfg.n_kv_heads, cfg.head_dim_)
-    out = [_from_numpy(a).to(dev) for a in leaves]
-    for t in (out[0], out[1]):
-        if t.ndim != 5 or any(w is not None and w != g
-                              for w, g in zip(shape, t.shape)):
-            raise ValueError(f"cache shape {tuple(t.shape)}, {cfg.name} "
-                             f"takes (n_layers, B, S, Hkv, D) = {shape}")
-    out[2] = out[2].to(torch.int32)
-    if tuple(out[2].shape) != (cfg.n_layers,):
-        raise ValueError(f"length shape {tuple(out[2].shape)}, want "
-                         f"({cfg.n_layers},)")
-    return KVCache(*out)
+    arrs = [_from_numpy(a) for a in leaves]
+    if cfg.family == "ssm":
+        counts = {False: 2}
+        what = "2 (conv, state)"
+    else:
+        n_kv = 1 if cfg.family == "dense" else cfg.moe_every
+        counts = {False: 3 * n_kv, True: 5 * n_kv}
+        what = (f"{3 * n_kv} (k, v, length a KVCache) or {5 * n_kv} (with "
+                f"the int8 scales)")
+    quantized = [q for q, c in counts.items() if c == len(arrs)]
+    if not quantized:
+        raise ValueError(f"{len(arrs)} leaves; {cfg.name}'s caches have "
+                         f"{what}")
+    shp = arrs[0].shape
+    if len(shp) < 3:
+        raise ValueError(f"cache shape {tuple(shp)}, {cfg.name} takes a "
+                         f"leading layer axis and a batch")
+    like, spec = tree.flatten(_model.make_caches(
+        cfg, shp[1], shp[2], quantized_kv=quantized[0], device="meta"))
+    out = []
+    for a, lk in zip(arrs, like):
+        want = tuple(lk.shape)
+        if tuple(a.shape) != want:
+            raise ValueError(f"cache shape {tuple(a.shape)}, {cfg.name} "
+                             f"takes {want}")
+        out.append(a.to(dev) if lk.is_floating_point() else
+                   a.to(device=dev, dtype=lk.dtype))
+    return tree.unflatten(spec, out)
 
 
 def caches_to_numpy(caches) -> list:
-    """The leaves of a port ``KVCache`` (stacked or not) as numpy arrays in
-    the reference's order, the None scales left out; bf16 widens to f32
-    (exactly)."""
-    return [_to_numpy(t) for t in caches if t is not None]
+    """The leaves of port caches (stacked or not; a ``KVCache``, a dict of
+    them, an ``SSMCache``) as numpy arrays in the reference's order, the
+    None scales left out; bf16 widens to f32 (exactly)."""
+    from . import tree
+    return [_to_numpy(t) for t in tree.leaves(caches)]
 
 
 def request_from_numpy(fields: dict, *, device="cuda"):

@@ -4,11 +4,14 @@ Every ``*_init`` returns ``(params, axes)``: two nested dicts of the same
 structure, the second holding each dimension's logical axis name (or
 None), as in the reference. Params are plain tensors and the apply
 functions are pure. An init takes ``make(shape, fan_in, scale, dtype)``
-(``scale`` a float, or 'ones' / 'zeros' for constant leaves), which
+(``scale`` a float, or 'ones' / 'zeros' / 'log_arange' for constant
+leaves; the last is mamba1's ``log(1..n)`` along the last axis), which
 returns a drawn tensor (``init_model``) or an empty one on the meta
 device (the module skeleton), so the structure is written once.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -21,17 +24,39 @@ def _dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+# f32 entries drawn at a time (256 MB): a larger leaf is drawn slice by
+# slice into its destination (llama4's stacked experts hold 5.4e9 entries
+# a leaf, 21.5 GB in f32)
+DRAW_CHUNK = 1 << 26
+
+
 def trunc_normal(generator: torch.Generator, shape, scale: float,
                  dtype, fan_in: int | None = None) -> Tensor:
     """Normal truncated to [-2, 2] times ``scale / sqrt(fan_in)``, drawn in
     f32 on ``generator``'s device, then cast. ``fan_in`` defaults to
-    ``shape[0]``; a stacked draw passes the per-layer fan-in."""
+    ``shape[0]``; a stacked draw passes the per-layer fan-in. A leaf of
+    more than ``DRAW_CHUNK`` entries is drawn in f32 slices of its flat
+    storage, each scaled in place and cast into the destination: the same
+    distribution, with one slice of f32 temporaries."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) else 1
     std = scale / max(fan_in, 1) ** 0.5
-    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * std).to(dtype)
+    dev = generator.device
+    n = math.prod(shape)
+    if n <= DRAW_CHUNK:
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return (x * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    for i in range(0, n, DRAW_CHUNK):
+        x = torch.empty(min(DRAW_CHUNK, n - i), dtype=torch.float32,
+                        device=dev)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        flat[i:i + x.numel()].copy_(x.mul_(std))
+    return out
 
 
 def ones(make, shape, dtype):
@@ -57,7 +82,14 @@ def dense_init(make, in_dim: int, out_dim: int, in_ax, out_ax, *,
 
 
 def dense_apply(p, x: Tensor) -> Tensor:
-    y = x @ p["w"]
+    """``x @ w (+ b)``. Mixed dtypes promote as jnp promotes them (an f32
+    activation against bf16 weights computes in f32): ``torch.matmul``
+    would raise."""
+    w = p["w"]
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

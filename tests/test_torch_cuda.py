@@ -15,8 +15,9 @@ f32 accumulation; K3 with an f32 A sums in f32), 3e-2 for K6 with bf16 A. K7 is 
 (head, query row) at its own norm (``_row_close``): 1e-2 for bf16 inputs
 (the output is rounded to bf16, 2^-9 relative), 2e-4 for f32 inputs.
 Empty inputs on the card raise: a call launches its kernel or raises.
-The LM's training and serving paths (no kernel) are held to the port's
-CPU path: 1e-5 for f32, 1e-2 for int8 caches (dequantised to bf16).
+The LM's training and serving paths (no kernel; the dense, MoE and SSM
+families) are held to the port's CPU path: 1e-5 for f32, 1e-2 for int8
+caches (dequantised to bf16), 2e-2 for bf16 weights.
 """
 import numpy as np
 import pytest
@@ -1288,3 +1289,104 @@ def test_int8_caches_on_the_card(cuda):
             assert torch.equal(a, b)
         else:
             assert (a - b).abs().max() <= 2e-2 * b.abs().max(), i
+
+
+# -- the MoE and SSM families served (no kernel: the layers and the Engine
+# on the card against the port's CPU path)
+
+
+def _family(name, **changes):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(name).reduced(), **changes)
+
+
+@pytest.mark.parametrize("name", ["arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_apply_on_the_card_matches_cpu(cuda, name, dropless):
+    """``moe_apply`` at capacity 0.5 (drops) and dropless, f32: the same
+    dispatch masks, y within 1e-5 and aux within 1e-6 relative."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = _family(name, moe_capacity_factor=0.5)
+    p, _ = M.init_model(0, cfg, device="cpu")
+    units = p["units"]
+    blk = tree.map(lambda x: x[0], units[sorted(units)[-1]]["moe"])
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (3, 40, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        bd = tree.map(lambda t: t.to(dev), blk)
+        r = moe._route(cfg, bd, x.to(dev), dropless=dropless)
+        y, aux = moe.moe_apply(cfg, bd, x.to(dev), dropless=dropless)
+        out[dev] = (r.dispatch.cpu(), y.cpu(), aux.cpu())
+    (dc, yc, ac), (dd, yd, ad) = out["cpu"], out[cuda]
+    assert torch.equal(dd, dc)
+    if not dropless:   # capacity 0.5 drops
+        assert float(dc.sum()) < 120 * cfg.moe_top_k
+    assert (yd - yc).abs().max() <= 1e-5 * yc.abs().max()
+    assert abs(float(ad) - float(ac)) <= 1e-6 * abs(float(ac))
+
+
+@pytest.mark.parametrize("name,impl", [("falcon-mamba-7b", "scan"),
+                                       ("zamba2-1.2b", "scan"),
+                                       ("zamba2-1.2b", "chunked")])
+def test_ssm_apply_on_the_card_matches_cpu(cuda, name, impl):
+    """``ssm_apply`` prefill then two decode steps, f32, the caches written
+    in place on each device: outputs and states within 1e-5 relative."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    cfg = _family(name, ssm_impl=impl)
+    gen = torch.Generator().manual_seed(0)
+    p, _ = ssm.ssm_init(M._drawer(gen), cfg, torch.float32)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32) * 0.3)
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = tree.map(lambda t: t.to(dev), p)
+        c = ssm.make_ssm_cache(cfg, 2, torch.float32, device=dev)
+        ys = [ssm.ssm_apply(cfg, pd, x[:, :10].to(dev), mode="prefill",
+                            cache=c)[0]]
+        for i in (10, 11):
+            ys.append(ssm.ssm_apply(cfg, pd, x[:, i:i + 1].to(dev),
+                                    mode="decode", cache=c)[0])
+        out[dev] = [y.cpu() for y in ys] + [c.state.cpu(), c.conv.cpu()]
+    for a, b in zip(out[cuda], out["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "llama4-maverick-400b-a17b",
+                                  "falcon-mamba-7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_family_decode_step_on_the_card_matches_cpu(cuda, name, dtype):
+    """Prefill and one decode step of each family with f32 caches, f32 and
+    bf16 weights (the Engine's default cache): logits within 1e-5 (f32)
+    or 2e-2 (bf16: the projections round in another order) of the CPU's,
+    and the Engine's greedy tokens equal in f32."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    cfg = _family(name, dtype=dtype)
+    p, _ = M.init_model(0, cfg, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        1, cfg.vocab, (3, 14)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = tree.map(lambda x: x.to(dev), p)
+        c = M.make_caches(cfg, 3, 16, torch.float32, device=dev)
+        c, l_pre = M.prefill(cfg, pd, {"tokens": toks[:, :-1].to(dev)}, c)
+        _, l_dec = M.decode_step(cfg, pd, c, {
+            "tokens": toks[:, -1:].to(dev),
+            "position": torch.full((1,), 13, dtype=torch.int32,
+                                   device=dev)})
+        out[dev] = (l_pre.cpu(), l_dec.cpu())
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for a, b in zip(out[cuda], out["cpu"]):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+    if dtype == "float32":
+        (t_cpu, _), (t_dev, _) = (_served(cfg, d, False) for d in
+                                  ("cpu", cuda))
+        for a, b in zip(t_dev, t_cpu):
+            np.testing.assert_array_equal(a, b)
