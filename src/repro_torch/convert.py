@@ -10,11 +10,11 @@ operator or state on ``device``; ``request_from_numpy`` builds a
 ``params_from_numpy`` / ``params_to_numpy`` and
 ``adamw_state_from_numpy`` carry a model's parameters and its AdamW state
 as numpy leaves in the reference's leaf order, and ``caches_from_numpy``
-/ ``caches_to_numpy`` its stacked decode caches (KV or SSM), so a decode
-resumes in the port from caches the reference filled. Whoever holds another
-package's arrays converts them to numpy first, so this module never sees
-them; it is what lets a parity test start two implementations from
-identical states.
+/ ``caches_to_numpy`` its stacked decode caches (KV, SSM or the hybrid's
+tree of both), so a decode resumes in the port from caches the reference
+filled. Whoever holds another package's arrays converts them to numpy
+first, so this module never sees them; it is what lets a parity test
+start two implementations from identical states.
 """
 from __future__ import annotations
 
@@ -229,27 +229,45 @@ def adamw_state_from_numpy(cfg, leaves, *, device="cuda"):
                       v=moments(leaves[1 + n:]))
 
 
+def _cache_layout(cfg) -> tuple:
+    """``({quantized: leaf count}, what, kv_at)`` of ``cfg``'s stacked
+    caches: the leaf counts of an f32 / bf16 and of an int8 cache, their
+    description, and the index of the first KV leaf (None: no KV)."""
+    kv = {False: 3, True: 5}
+    kv_what = "k, v, length a KVCache; 5 with the int8 scales"
+    fam = cfg.family
+    if fam == "ssm":
+        return {False: 2}, "2 (conv, state)", None
+    if fam == "hybrid":
+        from .models import model as _model
+        tail = 2 if _model._hybrid_shape(cfg)[2] else 0
+        counts = {q: tail + c + 2 for q, c in kv.items()}
+        return (counts, f"{counts[False]} or {counts[True]} ({tail} tail "
+                        f"conv, state; the units' {kv_what}; their conv, "
+                        f"state)", tail)
+    n_kv = cfg.moe_every if fam == "moe" else 1
+    return ({q: c * n_kv for q, c in kv.items()},
+            f"{3 * n_kv} (k, v, length a KVCache) or {5 * n_kv} (with the "
+            f"int8 scales)", 0)
+
+
 def caches_from_numpy(cfg, leaves, *, device="cuda"):
     """The port's stacked caches for ``cfg`` from the leaves of the
     reference's (``jax.tree.leaves`` of its ``make_caches`` / ``prefill``
-    caches), in the structure ``model.make_caches`` builds: dense, one
-    ``KVCache`` (``k``, ``v``, ``length`` (n_layers,), and for an int8
-    cache ``k_scale``, ``v_scale``); moe, ``{"sub{i}": KVCache}`` over
-    (n_units,); ssm, one ``SSMCache`` (``conv``, ``state``). Each float
-    leaf keeps its dtype (a bf16 cache stays bf16); ``length`` is int32."""
+    caches), in the structure ``model.make_caches`` builds: dense, vlm,
+    encdec, one ``KVCache`` (``k``, ``v``, ``length`` (n_layers,), and
+    for an int8 cache ``k_scale``, ``v_scale``); moe, ``{"sub{i}":
+    KVCache}`` over (n_units,); ssm, one ``SSMCache`` (``conv``,
+    ``state``); hybrid, ``{"tail": SSMCache, "units": {"attn": KVCache,
+    "ssm": SSMCache}}`` (sorted keys: the tail's leaves first). Each float
+    leaf keeps its dtype (a bf16 cache stays bf16); ``length`` is
+    int32."""
     from . import tree
     from .models import model as _model
 
     dev = _ops.resolve_device(device)
     arrs = [_from_numpy(a) for a in leaves]
-    if cfg.family == "ssm":
-        counts = {False: 2}
-        what = "2 (conv, state)"
-    else:
-        n_kv = 1 if cfg.family == "dense" else cfg.moe_every
-        counts = {False: 3 * n_kv, True: 5 * n_kv}
-        what = (f"{3 * n_kv} (k, v, length a KVCache) or {5 * n_kv} (with "
-                f"the int8 scales)")
+    counts, what, kv_at = _cache_layout(cfg)
     quantized = [q for q, c in counts.items() if c == len(arrs)]
     if not quantized:
         raise ValueError(f"{len(arrs)} leaves; {cfg.name}'s caches have "
@@ -258,8 +276,10 @@ def caches_from_numpy(cfg, leaves, *, device="cuda"):
     if len(shp) < 3:
         raise ValueError(f"cache shape {tuple(shp)}, {cfg.name} takes a "
                          f"leading layer axis and a batch")
+    # (n, B, S_max, ...) of a KV leaf; an SSM cache has no S_max
+    s_max = 1 if kv_at is None else arrs[kv_at].shape[2]
     like, spec = tree.flatten(_model.make_caches(
-        cfg, shp[1], shp[2], quantized_kv=quantized[0], device="meta"))
+        cfg, shp[1], s_max, quantized_kv=quantized[0], device="meta"))
     out = []
     for a, lk in zip(arrs, like):
         want = tuple(lk.shape)
@@ -273,8 +293,9 @@ def caches_from_numpy(cfg, leaves, *, device="cuda"):
 
 def caches_to_numpy(caches) -> list:
     """The leaves of port caches (stacked or not; a ``KVCache``, a dict of
-    them, an ``SSMCache``) as numpy arrays in the reference's order, the
-    None scales left out; bf16 widens to f32 (exactly)."""
+    them, an ``SSMCache``, the hybrid's tree of both) as numpy arrays in
+    the reference's order, the None scales left out; bf16 widens to f32
+    (exactly)."""
     from . import tree
     return [_to_numpy(t) for t in tree.leaves(caches)]
 

@@ -4,9 +4,11 @@
         --requests 8 --new-tokens 64 [--int8-kv] [--kv-select] \
         [--temperature T] [--smoke] [--device cpu]
 
-``--smoke`` uses the reduced config. The parameters are drawn on the
-device from seed 0 and the prompts from a numpy generator seeded with 0,
-as the reference's launcher draws them; the run uses the card unless
+``--smoke`` uses the reduced config. Enc-dec models are refused, as the
+reference refuses them, and a VLM raises ``ValueError``: the Engine
+builds token-only batches. The parameters are drawn on the device from
+seed 0 and the prompts from a numpy generator seeded with 0, as the
+reference's launcher draws them; the run uses the card unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -41,6 +43,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     if cfg.family in ("encdec",):
         raise SystemExit("serve CLI demo supports decoder-only archs")
+    if cfg.family == "vlm":
+        # the reference's Engine feeds tokens alone and fails in prefill
+        # (KeyError: 'vision_embeds'); there is no vision path to serve
+        raise ValueError(f"{cfg.name}: the Engine serves token prompts; a "
+                         f"VLM's prefill needs batch['vision_embeds'] and "
+                         f"batch['positions'], which it does not build")
 
     params, _ = M.init_model(0, cfg, device=dev)
     eng = Engine(cfg, params, max_batch=args.requests,

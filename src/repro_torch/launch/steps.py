@@ -6,7 +6,10 @@ opt_state, metrics)``, which updates the parameters and the optimizer
 state in place. With ``microbatches > 1`` the batch is split along its
 first axis and the f32 gradients are averaged over the pieces.
 ``build_prefill_step`` / ``build_decode_step`` return ``model.prefill`` /
-``model.decode_step`` bound to a config; both write the caches in place.
+``model.decode_step`` bound to a config; both write the caches in place
+and pass the batch through as it is: a VLM's ``vision_embeds`` and
+``positions``, an enc-dec model's ``frames`` (prefill) or ``enc_memory``
+(decode).
 The shardings (``mesh=``, ``plan=``) wait for data- and model-parallel
 training (ROADMAP Queue 1).
 """
@@ -73,7 +76,8 @@ def build_train_step(cfg, mesh=None, plan=None,
 
 
 def build_prefill_step(cfg, mesh=None, plan=None):
-    """``fn(params, batch, caches) -> (caches, logits)`` on one device."""
+    """``fn(params, batch, caches) -> (caches, logits)`` on one device;
+    ``batch`` holds the family's prefill inputs (``model.prefill``)."""
     _one_device(mesh, plan)
 
     def prefill_step(params, batch, caches):
@@ -83,7 +87,8 @@ def build_prefill_step(cfg, mesh=None, plan=None):
 
 
 def build_decode_step(cfg, mesh=None, plan=None):
-    """``fn(params, caches, batch) -> (caches, logits)`` on one device."""
+    """``fn(params, caches, batch) -> (caches, logits)`` on one device;
+    ``batch`` holds the family's decode inputs (``model.decode_step``)."""
     _one_device(mesh, plan)
 
     def decode_step(params, caches, batch):

@@ -1,5 +1,6 @@
 """GQA attention in plain PyTorch (counterpart of
-``repro.models.attention``): the training, prefill and decode modes.
+``repro.models.attention``): the training, prefill, decode, encoder and
+cross-attention modes.
 
 ``full``     materialises (T, S) scores in f32;
 ``chunked``  loops over query tiles, O(bq * S) live scores a tile;
@@ -13,8 +14,10 @@ The reference's ``cache_update`` is functional. Here the cache buffers
 are written in place (``index_copy_``, or the one-hot select copied
 back), and ``length`` grows in place: a functional copy of the whole
 cache a step would cost more than the rest of a decode step's bytes.
-The ``'encoder'`` / ``'cross'`` modes and M-RoPE wait for the enc-dec and
-VLM families (ROADMAP Queue 1).
+The ``'encoder'`` and ``'cross'`` modes (whisper) attend without a causal
+mask, as the reference's do; ``'cross'`` takes its k / v as given and
+rotates nothing. ``rope`` is ``"rope"``, ``"mrope"`` (Qwen2-VL's three
+position streams) or ``"none"`` (no rotation).
 """
 from __future__ import annotations
 
@@ -222,25 +225,27 @@ def _sdpa_decode(q, cache: KVCache, *, window, constrain_kv=False):
 def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
                cache: Optional[KVCache] = None, cross_kv=None,
                window: Optional[int] = None):
-    """mode: 'train' | 'prefill' | 'decode'. Returns ``(out, cache)``;
-    'prefill' and 'decode' write ``cache`` in place (``cache_update``).
-    Prefill attends the fresh k / v, not the cache. The encoder's and
-    cross-attention modes wait for their families."""
-    if mode not in ("train", "prefill", "decode") or cross_kv is not None:
-        raise NotImplementedError(
-            f"attention mode {mode!r} waits for the enc-dec family "
-            f"(ROADMAP Queue 1); the port runs 'train', 'prefill' and "
-            f"'decode'")
-    if cfg.rope != "rope":
-        raise NotImplementedError(
-            f"rope={cfg.rope!r} waits for its family (ROADMAP Queue 1)")
+    """mode: 'train' | 'prefill' | 'decode' | 'encoder' | 'cross'. Returns
+    ``(out, cache)``; 'prefill' and 'decode' write ``cache`` in place
+    (``cache_update``). Prefill attends the fresh k / v, not the cache.
+    'cross' attends ``cross_kv = (k, v)`` (B, S, Hkv, D) as given; it and
+    'encoder' are not causal. ``positions`` are (..., T) ids, or (B, 3, T)
+    streams under M-RoPE."""
     hd = cfg.head_dim_
     b, t, _ = x.shape
     q = _split_heads(cm.dense_apply(p["wq"], x), cfg.n_heads)
-    k = _split_heads(cm.dense_apply(p["wk"], x), cfg.n_kv_heads)
-    v = _split_heads(cm.dense_apply(p["wv"], x), cfg.n_kv_heads)
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if mode == "cross":
+        k, v = cross_kv
+    else:
+        k = _split_heads(cm.dense_apply(p["wk"], x), cfg.n_kv_heads)
+        v = _split_heads(cm.dense_apply(p["wv"], x), cfg.n_kv_heads)
+
+    if cfg.rope == "rope" and mode != "cross":
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope" and mode != "cross":
+        q = cm.apply_mrope(q, positions, cfg.rope_theta)
+        k = cm.apply_mrope(k, positions, cfg.rope_theta)
 
     if mode == "decode":
         cache = cache_update(cache, k, v, onehot=cfg.decode_constrain_kv)
@@ -249,13 +254,17 @@ def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
     else:
         if mode == "prefill":
             cache = cache_update(cache, k, v)
+        # the reference: prefill is causal and always takes the chunked
+        # route when asked to (its T a multiple of the chunk); train,
+        # encoder and cross only where T divides
+        causal = mode in ("train", "prefill")
         impl = _select_impl(cfg, t)
         if impl == "chunked" and (mode == "prefill" or t % cfg.attn_chunk
                                   == 0):
-            out = _sdpa_chunked(q, k, v, causal=True, window=window,
+            out = _sdpa_chunked(q, k, v, causal=causal, window=window,
                                 chunk=cfg.attn_chunk)
         else:
-            out = _sdpa_full(q, k, v, causal=True, window=window)
+            out = _sdpa_full(q, k, v, causal=causal, window=window)
     # The output projection runs in the weights' dtype. Where the
     # reference runs, that is jnp's promotion (an int8 cache's bf16 output
     # against f32 weights widens to f32); an f32 cache under bf16 weights,

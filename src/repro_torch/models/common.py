@@ -126,7 +126,7 @@ def norm_apply(kind: str, p, x: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (M-RoPE waits for the VLM family)
+# Rotary embeddings (standard + multimodal M-RoPE)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
@@ -143,6 +143,22 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: Tensor, positions3: Tensor, theta: float) -> Tensor:
+    """Qwen2-VL M-RoPE: positions3 (..., 3, T) = (temporal, h, w) ids; the
+    head dim splits into three bands, each rotated by ``apply_rope`` (its
+    frequencies from its own width) with its own id stream; a band
+    narrower than 2 passes as it is. The bands are 1/2, 1/4, 1/4 of the
+    head, even widths, as the reference splits them."""
+    d = x.shape[-1]
+    b1 = d // 2 // 2 * 2          # temporal band (half the dim, even)
+    b2 = (d - b1) // 2 // 2 * 2   # height band
+    b3 = d - b1 - b2              # width band
+    parts = torch.split(x, [b1, b2, b3], dim=-1)
+    out = [apply_rope(band, pos, theta) if band.shape[-1] >= 2 else band
+           for band, pos in zip(parts, positions3.movedim(-2, 0))]
+    return torch.cat(out, dim=-1)
 
 
 # ---------------------------------------------------------------------------

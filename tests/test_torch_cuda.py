@@ -15,9 +15,10 @@ f32 accumulation; K3 with an f32 A sums in f32), 3e-2 for K6 with bf16 A. K7 is 
 (head, query row) at its own norm (``_row_close``): 1e-2 for bf16 inputs
 (the output is rounded to bf16, 2^-9 relative), 2e-4 for f32 inputs.
 Empty inputs on the card raise: a call launches its kernel or raises.
-The LM's training and serving paths (no kernel; the dense, MoE and SSM
-families) are held to the port's CPU path: 1e-5 for f32, 1e-2 for int8
-caches (dequantised to bf16), 2e-2 for bf16 weights.
+The LM's training and serving paths (no kernel; the dense, MoE, SSM,
+hybrid, enc-dec and VLM families) are held to the port's CPU path: 1e-5
+for f32, 1e-2 for int8 caches (dequantised to bf16), 2e-2 for bf16
+weights.
 """
 import numpy as np
 import pytest
@@ -1358,35 +1359,101 @@ def test_ssm_apply_on_the_card_matches_cpu(cuda, name, impl):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
 
+def _family_batches(cfg, toks, seed=11):
+    """The prefill batch of ``toks[:, :-1]`` and the decode batch of its
+    last token, on the CPU, with the family's other inputs: a VLM's 4 patch
+    embeddings first and distinct M-RoPE streams (a 2 x 2 grid at (0, row,
+    col), text from 2 onward on all three), an enc-dec model's 7 frames
+    (the decode step's ``enc_memory`` is left to the caller)."""
+    b, t = toks.shape
+    rng = np.random.default_rng(seed)
+    pre = {"tokens": toks[:, :-1]}
+    dec = {"tokens": toks[:, -1:],
+           "position": torch.full((1,), t - 1, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        rows, cols = np.divmod(np.arange(4), 2)
+        text = np.arange(2, 2 + t)
+        pos = np.stack([np.r_[np.zeros(4, int), text], np.r_[rows, text],
+                        np.r_[cols, text]])
+        pos = torch.as_tensor(np.broadcast_to(pos, (b, 3, 4 + t)).astype(
+            np.int32))
+        pre["vision_embeds"] = torch.as_tensor(rng.standard_normal(
+            (b, 4, cfg.d_model)).astype(np.float32))
+        pre["positions"] = pos[:, :, :-1]
+        dec["position"] = pos[:, :, -1:]
+    if cfg.family == "encdec":
+        pre["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, 7, cfg.d_model)).astype(np.float32))
+    return pre, dec
+
+
 @pytest.mark.parametrize("name", ["arctic-480b", "llama4-maverick-400b-a17b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "zamba2-1.2b",
+                                  "whisper-medium", "qwen2-vl-2b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_family_decode_step_on_the_card_matches_cpu(cuda, name, dtype):
     """Prefill and one decode step of each family with f32 caches, f32 and
     bf16 weights (the Engine's default cache): logits within 1e-5 (f32)
     or 2e-2 (bf16: the projections round in another order) of the CPU's,
-    and the Engine's greedy tokens equal in f32."""
+    and the Engine's greedy tokens equal in f32 (the families it serves:
+    not enc-dec nor VLM, whose batches it does not build). zamba2 runs 5
+    layers (a tail of 1) with a window of 8 over its 14 tokens; whisper's
+    decode step takes ``_encode`` of the frames; qwen2-vl's positions are
+    (B, 3, 1)."""
     from repro_torch import tree
     from repro_torch.models import model as M
-    cfg = _family(name, dtype=dtype)
+    changes = dict(n_layers=5, attn_window=8) if name == "zamba2-1.2b" \
+        else {}
+    cfg = _family(name, dtype=dtype, **changes)
     p, _ = M.init_model(0, cfg, device="cpu")
     toks = torch.as_tensor(np.random.default_rng(10).integers(
         1, cfg.vocab, (3, 14)).astype(np.int32))
+    pre, dec = _family_batches(cfg, toks)
     out = {}
     for dev in ("cpu", cuda):
         pd = tree.map(lambda x: x.to(dev), p)
-        c = M.make_caches(cfg, 3, 16, torch.float32, device=dev)
-        c, l_pre = M.prefill(cfg, pd, {"tokens": toks[:, :-1].to(dev)}, c)
-        _, l_dec = M.decode_step(cfg, pd, c, {
-            "tokens": toks[:, -1:].to(dev),
-            "position": torch.full((1,), 13, dtype=torch.int32,
-                                   device=dev)})
+        c = M.make_caches(cfg, 3, 20, torch.float32, device=dev)
+        c, l_pre = M.prefill(cfg, pd, {k: v.to(dev) for k, v in pre.items()},
+                             c)
+        d = {k: v.to(dev) for k, v in dec.items()}
+        if cfg.family == "encdec":
+            d["enc_memory"] = M._encode(cfg, pd, pre["frames"].to(dev).to(
+                pd["embed"]["table"].dtype))
+        _, l_dec = M.decode_step(cfg, pd, c, d)
         out[dev] = (l_pre.cpu(), l_dec.cpu())
     tol = 1e-5 if dtype == "float32" else 2e-2
     for a, b in zip(out[cuda], out["cpu"]):
         assert (a - b).abs().max() <= tol * b.abs().max()
-    if dtype == "float32":
+    if dtype == "float32" and cfg.family not in ("encdec", "vlm"):
         (t_cpu, _), (t_dev, _) = (_served(cfg, d, False) for d in
                                   ("cpu", cuda))
         for a, b in zip(t_dev, t_cpu):
             np.testing.assert_array_equal(a, b)
+
+
+def test_shared_block_caches_per_unit_on_the_card(cuda):
+    """zamba2's one shared attention block writes a KV cache per unit: on
+    the card, after a prefill and a decode step, each unit's k / v equal
+    the CPU's (1e-5, f32) and the units' differ from each other."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    cfg = _family("zamba2-1.2b", dtype="float32", n_layers=6)
+    p, _ = M.init_model(0, cfg, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        1, cfg.vocab, (2, 11)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = tree.map(lambda x: x.to(dev), p)
+        c = M.make_caches(cfg, 2, 12, torch.float32, device=dev)
+        c, _ = M.prefill(cfg, pd, {"tokens": toks[:, :-1].to(dev)}, c)
+        M.decode_step(cfg, pd, c, {
+            "tokens": toks[:, -1:].to(dev),
+            "position": torch.full((1,), 10, dtype=torch.int32, device=dev)})
+        out[dev] = tree.map(lambda x: x.cpu(), c["units"]["attn"])
+    got, want = out[cuda], out["cpu"]
+    assert got.k.shape[0] == 3 and got.length.tolist() == [11] * 3
+    for u in range(3):
+        for a, b in ((got.k[u], want.k[u]), (got.v[u], want.v[u])):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max(), u
+    for u in (1, 2):
+        assert (got.k[u] - got.k[0]).abs().max() > 0.1 * got.k[0].abs().max()

@@ -6,6 +6,7 @@ Tolerances: the loss within 2e-5 relative, every gradient leaf within
 1e-4 of its largest entry (f32, a different summation order). Full and
 chunked attention, full and chunked CE agree to 1e-6; remat changes no
 bit (CPU)."""
+import dataclasses
 import re
 
 import jax
@@ -239,14 +240,24 @@ def test_param_count(name):
 
 @pytest.mark.parametrize("name", OTHERS)
 def test_other_families_raise(name):
+    """The hybrid, enc-dec and VLM families build (their parity lives in
+    test_torch_hybrid.py, test_torch_encdec.py and test_torch_vlm.py);
+    a family the model does not know raises ``ValueError`` from every
+    entry point, as the reference's ``init_model`` does."""
     cfg = get_arch(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        M.init_model(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        M.param_skeleton(cfg)
+    tp, _ = M.init_model(0, cfg, device="cpu")
+    assert [x.shape for x in tree.leaves(tp)] == \
+        [x.shape for x in tree.leaves(M.param_skeleton(cfg))]
+    bad = dataclasses.replace(cfg, family="unknown")
+    with pytest.raises(ValueError, match="unknown family"):
+        M.init_model(0, bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        M.param_skeleton(bad)
     _, tb = _batch(cfg.vocab)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        M.loss_fn(cfg, {}, tb)
+    with pytest.raises(ValueError, match="unknown family"):
+        M.loss_fn(bad, {}, tb)
+    with pytest.raises(ValueError, match="unknown family"):
+        M.make_caches(bad, 1, 8, device="cpu")
 
 
 def test_entry_points_need_a_card():

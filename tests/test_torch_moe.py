@@ -428,12 +428,20 @@ def test_family_sizes_at_full_width():
 
 
 def test_waiting_families_raise():
-    for name, item in (("zamba2-1.2b", 4), ("whisper-medium", 5),
-                       ("qwen2-vl-2b", 5)):
-        cfg = get_arch(name).reduced()
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            M.make_caches(cfg, 1, 8, device="cpu")
+    """The families that waited for their slice now build their caches,
+    with the reference's leaves and shapes (``jax.eval_shape`` of its
+    ``make_caches``); a family the model does not know still raises."""
+    for name in ("zamba2-1.2b", "whisper-medium", "qwen2-vl-2b"):
+        cfg = dataclasses.replace(get_arch(name).reduced(), n_layers=5)
+        rc = dataclasses.replace(ref_arch(name).reduced(), n_layers=5)
+        got = tree.leaves(M.make_caches(cfg, 1, 8, device="meta"))
+        want = jax.tree.leaves(jax.eval_shape(
+            lambda: RM.make_caches(rc, 1, 8)))
+        assert [tuple(x.shape) for x in got] == \
+            [tuple(x.shape) for x in want], name
+        with pytest.raises(ValueError, match="unknown family"):
+            M.make_caches(dataclasses.replace(cfg, family="x"), 1, 8,
+                          device="cpu")
 
 
 # ------------------------------------------- reference behaviours, pinned

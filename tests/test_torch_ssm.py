@@ -1,8 +1,8 @@
 """The port's SSM blocks (models/ssm.py) and its SSM family (falcon-mamba,
 mamba1) against the JAX package, f32 unless stated, from the reference's
 parameters: the module's pieces on falcon-mamba's reduced config, mamba2
-and the chunked SSD on zamba2's (whose hybrid family waits for ROADMAP
-Queue 1 item 4), and the family's entry points from the reference's
+and the chunked SSD on zamba2's (its hybrid family: test_torch_hybrid.py),
+and the family's entry points from the reference's
 ``init_model(key(0))`` through ``convert.params_from_numpy``.
 
 Tolerances: outputs, states and logits within 1e-5 relative (f32, another
