@@ -220,7 +220,31 @@ It runs every phase, in order, each printing one JSON line:
                  ssm phases, a decode step's operations beside its bytes
                  (whisper's cross projections as written: every step; as
                  needed: kept);
- 20. profile  -- each path call again (and the DPP chain and the greedy
+ 20. parallel -- data- and model-parallel training: olmo-1b at its
+                 published width cut to 2 layers, 8 x 1024 tokens, 2
+                 steps (f32 checks, bf16 times) under each plan of
+                 PAR_PLANS: D = 1 on NCCL in this process; model = 2
+                 (saving a checkpoint after step 1), data = 2 (with a
+                 planted fault and the elastic restore) and data = 2 x
+                 model = 2 with 2 microbatches on gloo ranks sharing the
+                 card; the FSDP plan, which gloo refuses (PAR_GLOO_
+                 REFUSED), on NCCL a rank a card where there are four
+                 cards. It holds every rank to the same loss and shard
+                 bits, each plan to the one-device run (PAR_TOL), the
+                 fault above those limits, the restored arrays bit for
+                 bit and step 2's loss, compressed_psum to its formula
+                 at D = 2 and 4, and no kernel launched; and prints each
+                 plan's seconds a step, seconds in collectives, bytes a
+                 step from the placements and peak memory per rank;
+ 21. train_families -- falcon-mamba-7b cut to 16 layers, zamba2-1.2b,
+                 whisper-medium and qwen2-vl-2b whole, bf16, trained 2
+                 steps on one fixed batch of 8 sequences; checks (a) one
+                 f32 step at LM_CUT's depth on the card against the
+                 CPU, with TF32 as the control, (b) bf16 against f32 at
+                 step 0, (c) the loss falling, (g) no kernel launched;
+                 prints seconds a step, positions/s, the share of the
+                 bf16 peak and peak memory;
+ 22. profile  -- each path call again (and the DPP chain and the greedy
                  MAP call on 'pallas', with K1's share, the serve-dense
                  flushes on 'pallas' and 'fused', the generate phase's
                  prefill and one decode step, and the same two calls of
@@ -230,7 +254,7 @@ It runs every phase, in order, each printing one JSON line:
                  launched (torch.profiler; CUDA events for the one-launch
                  attention call), so the card's idle share is
                  1 - device / host;
- 21. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
+ 23. yardsticks -- the library calls beside K2, K4, K5 (BSR @ dense) and
                  K6 (torch.bmm + dot), each timed in turns with its kernel
                  (kernel, library, library, kernel; three rounds; medians
                  and their factor; the kernel both as calls back to back
@@ -264,7 +288,7 @@ except ImportError:  # no PyTorch at all: nothing to drive
 PHASES = ("device", "build", "kernels", "dense", "sparse", "trace",
           "bilinear", "apps", "serve", "sharded", "attention", "coo",
           "train", "generate", "moe", "ssm", "hybrid", "encdec", "vlm",
-          "profile", "yardsticks")
+          "parallel", "train_families", "profile", "yardsticks")
 KERNELS = ("gql_update", "bell_matvec", "fused_step_dense", "fused_step_bell",
            "bell_matvec_mrhs", "fused_matvec", "flash_attention")
 # the device functions of csrc/ as the profiler names them
@@ -493,6 +517,55 @@ FAMILY_TOL = {"hybrid": {"cpu": 1e-4, "decode": 4e-2}}
 # H100, the same bits after a full-route prefill; a windowless prefill
 # 2.0e-2 (PERF.md §6)
 LONG_ENGINE_TOL = 3e-4
+# The parallel phase: data- and model-parallel training of PAR_ARCH at its
+# published width cut to PAR_LAYERS layers, PAR's fixed batch, PAR["steps"]
+# steps in f32 for the checks (AdamW at eps 1e-3) and two in bf16 for the
+# times, under each plan of PAR_PLANS: (world, model-axis size, fsdp,
+# microbatches), the data axis the rest. "D=1" runs on NCCL in this
+# process; PAR_SPAWNS are gloo ranks sharing the card (NCCL takes a card a
+# rank); PAR_FAULT's ranks also run the planted fault; PAR_SAVE writes the
+# checkpoint after step 1 that PAR_RESTORE's plans (and D = 1, in this
+# process) restore. PAR_TOL: those of tests/test_torch_train.py (loss
+# relative, parameters and moments of each leaf's largest entry), the
+# restored run's step-2 loss against the uninterrupted one's, and
+# compressed_psum against its formula (PAR_COMPRESS elements a rank).
+PAR_ARCH, PAR_LAYERS = TRAIN_ARCH, TRAIN_CUT
+PAR = dict(seq=1024, batch=8, steps=2, lr=3e-4)
+PAR_PLANS = {"D=1": (1, 1, False, 1), "data=2": (2, 1, False, 1),
+             "model=2": (2, 2, False, 1),
+             "data=2 x model=2 mb2": (4, 2, False, 2),
+             "data=2 x model=2 fsdp mb2": (4, 2, True, 2)}
+PAR_SPAWNS = ((2, ("model=2", "data=2")), (4, ("data=2 x model=2 mb2",)))
+PAR_FAULT, PAR_SAVE = "data=2", "model=2"
+PAR_RESTORE = ("data=2", "data=2 x model=2 fsdp mb2")
+# What gloo on CUDA tensors refuses (torch 2.11 on the H100: every
+# all-gather through DTensor's functional collectives ends the rank with a
+# segfault, even of 16 MB; all-reduce, reduce-scatter, broadcast and
+# all-to-all pass; PERF.md): the FSDP plan gathers its parameters every
+# step, so it runs on NCCL, a rank a card, where the machine has 4 cards.
+PAR_GLOO_REFUSED = {"data=2 x model=2 fsdp mb2":
+                    "all-gather of FSDP's parameters: gloo segfaults in "
+                    "all-gathers of CUDA tensors"}
+PAR_NCCL = "data=2 x model=2 fsdp mb2"
+PAR_TOL = {"loss": 2e-5, "params": 1e-5, "m": 1e-4, "restore": 1e-6,
+           "compress": 1e-6}
+PAR_COMPRESS = 1 << 20
+PAR_TIMEOUT_S = 600.0
+# The train_families phase: each model at its published widths (falcon-
+# mamba cut to 16 of 64 layers: all 64 with AdamW's f32 moments need 84 GB),
+# bf16, FAM["steps"] steps of warmup-cosine AdamW (lr FAM["lr"]) on one
+# fixed batch of FAM["batch"] sequences (2 steps, cut from 4 for the
+# script's time: zamba2 takes 14 s a step; PERF.md): FAM["seq"] tokens (falcon-mamba,
+# zamba2), FAM["frames"] stub frames and FAM["text"] tokens (whisper's
+# audio and text contexts), or a FAM["grid"]-square image and
+# FAM["vlm_text"] tokens (qwen2-vl). Check (a) runs one f32 step at
+# LM_CUT's depth on FAM_A's batch on the card and on the CPU (the CPU's
+# on a thread of its own, beside the card's work).
+TRAIN_FAMILIES = (("falcon-mamba-7b", 16), ("zamba2-1.2b", 38),
+                  ("whisper-medium", 24), ("qwen2-vl-2b", 28))
+FAM = dict(batch=8, seq=1024, steps=2, lr=3e-4, frames=1500, text=448,
+           grid=16, vlm_text=768)
+FAM_A = dict(batch=2, seq=64, frames=256, grid=4)
 
 
 def lm_tol(cfg, key: str) -> float:
@@ -1105,6 +1178,513 @@ def sharded_rank(rank: int, world: int, backend: str, calls,
         os._exit(1)
 
 
+# -- the parallel phase: data- and model-parallel training -----------------
+
+
+def par_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_peak(dev, reset: bool = False) -> int:
+    """The card's peak allocation since the last reset (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def par_batch(cfg, dev) -> dict:
+    """PAR's fixed batch of tokens and labels, from the seed."""
+    toks = np.random.default_rng(SEED + 29).integers(
+        1, cfg.vocab - 1, (PAR["batch"], PAR["seq"] + 1)).astype(np.int32)
+    t = torch.as_tensor(toks, device=dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def par_opt(checks: bool = True):
+    """AdamW at the launcher's warmup-cosine lr; eps 1e-3 for the checks
+    (tests/test_torch_train.py: at 1e-8 an entry whose gradient is near
+    zero moves by about +-lr whatever its last bits)."""
+    from repro_torch.optim import AdamW, warmup_cosine
+    sched = warmup_cosine(PAR["lr"], 1, PAR["steps"])
+    return AdamW(lr=sched, eps=1e-3) if checks else AdamW(lr=sched)
+
+
+def par_reference(cfg, dev) -> dict:
+    """The one-device f32 run of PAR["steps"] steps: its losses, and its
+    parameters and moments after the last step."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    opt = par_opt()
+    params, _ = M.init_model(SEED, cfg, device=dev)
+    state = opt.init(params)
+    step = steps.build_train_step(cfg, optimizer=opt)
+    batch = par_batch(cfg, dev)
+    losses = []
+    for _ in range(PAR["steps"]):
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+    return {"losses": losses, "params": params, "m": state.m}
+
+
+def par_logical(x):
+    return x.full_tensor() if hasattr(x, "device_mesh") else x
+
+
+def par_local(ref, like):
+    """This rank's piece of the one-device tensor ``ref`` where ``like``
+    is a DTensor (a slice: nothing moves), else ``ref``."""
+    if not hasattr(like, "device_mesh"):
+        return ref
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(ref, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def par_errors(params, state, ref) -> dict:
+    """This rank's largest error over the leaves, each relative to the
+    one-device leaf's largest entry, of the parameters and the first
+    moments: its shards against the same slices of the one-device arrays
+    (no gather)."""
+    from repro_torch import tree
+
+    def worst(got, want):
+        out = 0.0
+        for g, w in zip(tree.leaves(got), tree.leaves(want)):
+            loc = g.to_local() if hasattr(g, "device_mesh") else g
+            out = max(out, float((loc - par_local(w, g)).abs().max()
+                                 / w.abs().max().clamp(min=1e-30)))
+        return out
+
+    return {"params_err": worst(params, ref["params"]),
+            "m_err": worst(state.m, ref["m"])}
+
+
+def par_digest(params, state) -> list:
+    """For each leaf, the coordinates of this rank's shard (None where the
+    leaf is replicated) and a digest of its bits (two int64 sums): ranks
+    holding the same shard must hold the same bits."""
+    from repro_torch import tree
+    out = []
+    for x in tree.leaves((params, state.m, state.v)):
+        loc = x.to_local() if hasattr(x, "device_mesh") else x
+        key = tuple(c if p.is_shard() else None for c, p in zip(
+            x.device_mesh.get_coordinate(), x.placements)) \
+            if hasattr(x, "device_mesh") else ()
+        b = loc.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device) % 1009 + 1
+        out.append((key, int(b.sum()), int((b * w).sum())))
+    return out
+
+
+def par_same_arrays(digests) -> bool:
+    """Whether every rank holding a leaf's shard holds the same bits."""
+    for leaf in zip(*digests):
+        seen = {}
+        for key, a, b in leaf:
+            if seen.setdefault(key, (a, b)) != (a, b):
+                return False
+    return True
+
+
+def par_bytes(dparams, mesh, cfg, tokens_local: int) -> dict:
+    """The bytes a step moves on this rank, reckoned from the placements:
+    an FSDP leaf's all-gather (forward) and reduce-scatter (its gradient),
+    a data-replicated leaf's gradient all-reduce (ring: 2 (D - 1) / D of
+    it), and, with a model axis, the tensor-parallel all-reduces of the
+    (B_local, T, d) activations (two a block forward, two backward, two
+    in the recomputed forward)."""
+    from repro_torch import tree
+    from torch.distributed.tensor import Shard
+    names = mesh.mesh_dim_names
+    size = dict(zip(names, mesh.shape))
+    d, m = size.get("data", 1), size.get("model", 1)
+    out = {"fsdp_gather": 0.0, "grad_reduce": 0.0, "tp_activations": 0.0}
+    for x in tree.leaves(dparams):
+        pl = dict(zip(names, x.placements))
+        loc = x.to_local().numel() * x.element_size()
+        if isinstance(pl.get("data"), Shard):
+            out["fsdp_gather"] += (d - 1) * loc
+            out["grad_reduce"] += (d - 1) * loc
+        elif d > 1:
+            out["grad_reduce"] += 2 * (d - 1) / d * loc
+    if m > 1:
+        act = tokens_local * cfg.d_model * torch.finfo(
+            getattr(torch, cfg.dtype)).bits // 8
+        out["tp_activations"] = cfg.n_layers * 6 * 2 * (m - 1) / m * act
+    out["total"] = sum(out.values())
+    return out
+
+
+def par_fault_vg(cfg, mesh, plan, params, batch):
+    """The planted fault: ``launch.steps._dist_value_and_grad`` with the
+    data reduce skipped: each rank keeps the gradient of its own rows as
+    if it were the whole batch's."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    from torch.distributed.tensor import DTensor
+
+    def loss(c, p, b):
+        return M.loss_fn(c, tree.map(lambda x: steps._for_compute(plan, x),
+                                     p), b)
+
+    with shapi.activation_context(mesh, plan):
+        (v, met), g = M.value_and_grad(cfg, params, batch, loss=loss)
+        g = tree.map(lambda gg, pp: DTensor.from_local(
+            gg.to_local(), mesh, pp.placements, run_check=False), g, params)
+    return (par_logical(v), {k: par_logical(x) for k, x in met.items()}), g
+
+
+def par_run(cfg, mesh, plan, mb, ref, dev, *, save=None, fault=False):
+    """PAR["steps"] f32 steps of one plan from the seed's parameters:
+    losses (and their bits), errors against the one-device run, the
+    logical arrays' digest; ``save`` writes a checkpoint after step 1."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    opt = par_opt()
+    params, axes = M.init_model(SEED, cfg, device=dev)
+    dp = shapi.distribute(params, mesh, shapi.param_shardings(
+        plan, mesh, params, axes))
+    del params
+    state = opt.init(dp)
+    real = steps._dist_value_and_grad
+    if fault:
+        steps._dist_value_and_grad = par_fault_vg
+    try:
+        step = steps.build_train_step(cfg, mesh, plan, opt,
+                                      microbatches=mb)
+        batch = par_batch(cfg, dev)
+        losses = []
+        for s in range(PAR["steps"]):
+            dp, state, met = step(dp, state, batch)
+            losses.append(float(met["loss"]))
+            if s == 0 and save is not None:
+                ckpt_io.save(save, 1, (dp, state))
+    finally:
+        steps._dist_value_and_grad = real
+    rec = {"losses": losses, "loss_hex": [x.hex() for x in losses],
+           "loss_err": max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref["losses"])),
+           **par_errors(dp, state, ref)}
+    if not fault:
+        rec["digest"] = par_digest(dp, state)
+        rec["sharded_leaves"] = sum(
+            1 for x in tree.leaves(dp) if any(
+                not p.is_replicate() for p in x.placements))
+    return rec
+
+
+def par_times(cfg, mesh, plan, mb, dev) -> dict:
+    """Two bf16 steps (AdamW at the default eps): the second timed under
+    torch.profiler; seconds, seconds in collectives (the host's c10d / gloo
+    / NCCL calls and the device's NCCL kernels), peak memory, and the
+    bytes reckoned from the placements."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    opt = par_opt(checks=False)
+    params, axes = M.init_model(SEED, cfg, device=dev)
+    dp = shapi.distribute(params, mesh, shapi.param_shardings(
+        plan, mesh, params, axes))
+    del params
+    state = opt.init(dp)
+    step = steps.build_train_step(cfg, mesh, plan, opt, microbatches=mb)
+    batch = par_batch(cfg, dev)
+    par_sync(dev)
+    par_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    dp, state, _ = step(dp, state, batch)
+    par_sync(dev)
+    first = time.perf_counter() - t0
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dp, state, met = step(dp, state, batch)
+        par_sync(dev)
+        second = time.perf_counter() - t0
+    keys = ("c10d", "gloo", "nccl", "wait_tensor", "all_reduce",
+            "all_gather", "reduce_scatter", "all_to_all")
+    host = sum(e.self_cpu_time_total for e in prof.key_averages()
+               if any(k in e.key.lower() for k in keys)) / 1e6
+    nccl = sum(e.device_time_total for e in prof.key_averages()
+               if "nccl" in e.key.lower()
+               and e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    d = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("data", 1)
+    tokens_local = PAR["batch"] * PAR["seq"] // d
+    return {"first_step_s": first, "step_s": second,
+            "tokens_per_s": PAR["batch"] * PAR["seq"] / second,
+            "collective_host_s": host, "nccl_device_s": nccl,
+            "loss_bf16": float(met["loss"]),
+            "max_memory_allocated": par_peak(dev),
+            "bytes_per_step": par_bytes(dp, mesh, cfg, tokens_local)}
+
+
+def par_compress(world: int, rank: int, dev, group=None) -> dict:
+    """``compressed_psum`` over the group on CUDA tensors, against the
+    formula replayed in numpy from every rank's seeded inputs: the int32
+    sum of the int8 payloads times the mean scale over n, and the
+    residual (x + r) - q scale."""
+    from repro_torch.optim import compression as C
+
+    def inputs(r):
+        rng = np.random.default_rng(SEED + 31 + r)
+        return (rng.standard_normal(PAR_COMPRESS).astype(np.float32),
+                rng.standard_normal(PAR_COMPRESS).astype(np.float32) * 1e-3)
+
+    x, res = inputs(rank)
+    out, nr = C.compressed_psum(torch.as_tensor(x, device=dev), group,
+                                torch.as_tensor(res, device=dev))
+    qs, ss, mine = [], [], None
+    for r in range(world):
+        xr, rr = inputs(r)
+        fb = xr + rr
+        s = np.float32(np.abs(fb).max() / np.float32(127.0)
+                       + np.float32(1e-12))
+        q = np.clip(np.round(fb / s), -127, 127).astype(np.int32)
+        qs.append(q)
+        ss.append(s)
+        if r == rank:
+            mine = fb - q.astype(np.float32) * s
+    n = np.float32(world)
+    want = np.sum(qs, axis=0).astype(np.float32) * (
+        np.float32(np.sum(ss, dtype=np.float32)) / n) / n
+    o, m_ = out.cpu().numpy(), nr.cpu().numpy()
+    return {"out_err": float(np.abs(o - want).max() / np.abs(want).max()),
+            "res_err": float(np.abs(m_ - mine).max() / np.abs(mine).max()),
+            "elements": int(x.size), "payload_bytes": int(x.size) + 4}
+
+
+def par_restore(cfg, mesh, plan, mb, ckpt, dev) -> dict:
+    """Elastic restore: the checkpoint saved under model = 2 after step 1
+    restored onto ``mesh`` / ``plan``; the logical arrays against the
+    checkpoint read on one device (bit for bit), then step 2's loss."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    opt = par_opt()
+    params, axes = M.init_model(SEED, cfg, device=dev)
+    p_sh = shapi.param_shardings(plan, mesh, params, axes)
+    like = shapi.distribute(params, mesh, p_sh)
+    st = opt.init(like)
+    o_sh = steps._opt_shardings(mesh, plan, axes, st, p_sh)
+    t0 = time.perf_counter()
+    rp, rs = ckpt_io.restore(ckpt, 1, (like, st), (p_sh, o_sh), mesh=mesh)
+    par_sync(dev)
+    restore_s = time.perf_counter() - t0
+    del like, st
+    plain = ckpt_io.restore(ckpt, 1, (params, opt.init(params)))
+    same = all(torch.equal(a.to_local() if hasattr(a, "device_mesh")
+                           else a, par_local(b, a))
+               for a, b in zip(tree.leaves((rp, rs)), tree.leaves(plain)))
+    del plain, params
+    step = steps.build_train_step(cfg, mesh, plan, opt, microbatches=mb)
+    _, _, met = step(rp, rs, par_batch(cfg, dev))
+    return {"bit_equal": same, "loss2": float(met["loss"]),
+            "restore_s": restore_s,
+            "data_sharded_leaves": sum(
+                1 for x in tree.leaves(rp) if hasattr(x, "device_mesh")
+                and x.placements[0].is_shard())}
+
+
+def par_plans(world: int, names, backend: str, dev, job) -> dict:
+    """Every plan of ``names`` on this rank (its mesh over the default
+    group): the f32 checks, the planted fault on the data-parallel plan,
+    the bf16 times; and the world's compressed_psum and restore duties."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.sharding import api as shapi
+    reset_launches()
+    rank = dist.get_rank()
+    cfg32 = dataclasses.replace(job["cfg"], dtype="float32")
+    cfg16 = dataclasses.replace(job["cfg"], dtype="bfloat16")
+    ref = par_reference(cfg32, dev)
+    recs = {}
+    for name in names:
+        world_, model, fsdp, mb = job["plans"][name]
+        assert world_ == world, (name, world)
+        mesh = make_host_mesh(model=model, device_type=dev.type)
+        plan = shapi.tp_plan(data_axes=("data",), model_axis="model",
+                             fsdp=fsdp)
+        t0 = time.perf_counter()
+        rec = par_run(cfg32, mesh, plan, mb, ref, dev,
+                      save=job["ckpt"] if name == PAR_SAVE else None)
+        if name == PAR_FAULT:
+            rec["fault"] = par_run(cfg32, mesh, plan, mb, ref, dev,
+                                   fault=True)
+        if name in PAR_RESTORE:
+            rec["restore"] = par_restore(cfg32, mesh, plan, mb,
+                                         job["ckpt"], dev)
+        rec["checks_s"] = time.perf_counter() - t0
+        rec["times"] = par_times(cfg16, mesh, plan, mb, dev)
+        recs[name] = rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if world > 1:
+        recs["compress"] = par_compress(world, rank, dev)
+    recs["launches"] = dict(LAUNCHES)
+    return recs
+
+
+def parallel_rank(rank: int, world: int, backend: str, names,
+                  job_dir: str) -> None:
+    """One rank of the parallel phase, spawned by it (gloo: card 0,
+    shared; NCCL: a card a rank): ``par_plans``, pickled to
+    ``job_dir``."""
+    import faulthandler
+    import os
+    import pickle
+    import traceback
+    faulthandler.enable()
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from repro_torch.launch import init_lane_group
+        job_dir = Path(job_dir)
+        with open(job_dir / "job.pkl", "rb") as f:
+            job = pickle.load(f)
+        PAR.update(job["par"])   # the phase's settings, as the parent has them
+        cuda = job["device_type"] == "cuda"
+        if cuda and backend == "gloo":
+            torch.cuda.set_device(0)
+        init_lane_group(backend, rank, world, store=dist.FileStore(
+            str(job_dir / f"store_{backend}{world}"), world),
+            timeout_s=PAR_TIMEOUT_S)
+        try:
+            dev = torch.device("cuda", torch.cuda.current_device()) \
+                if cuda else torch.device("cpu")
+            recs = par_plans(world, names, backend, dev, job)
+        finally:
+            dist.destroy_process_group()
+        with open(job_dir / f"{backend}{world}_rank{rank}.pkl", "wb") as f:
+            pickle.dump(recs, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+# -- the train_families phase ------------------------------------------------
+
+
+def fam_text(cfg) -> int:
+    """Text tokens a sequence of FAM's traffic: whisper's text context,
+    qwen2-vl's text after the image, FAM["seq"] for the others."""
+    if cfg.is_encdec:
+        return FAM["text"]
+    if cfg.family == "vlm":
+        return FAM["vlm_text"]
+    return FAM["seq"]
+
+
+def fam_positions(cfg, b: int) -> int:
+    """The positions a step runs through the stack: text tokens, and the
+    encoder's frames or the image's patches."""
+    extra = FAM["frames"] if cfg.is_encdec else \
+        FAM["grid"] ** 2 if cfg.family == "vlm" else 0
+    return b * (fam_text(cfg) + extra)
+
+
+def fam_batch(cfg, b: int, t: int, dev, *, frames: int = 0,
+              grid: int = 0) -> dict:
+    """A fixed train batch from the seed: ``b`` sequences of ``t`` tokens
+    and their next tokens as labels, and the family's inputs
+    (``LMInputs``: ``frames`` frame embeddings, or a ``grid`` x ``grid``
+    image ahead of the text at Qwen2-VL's positions)."""
+    rng = np.random.default_rng(SEED + 37)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab - 1, (b, t + 1)).astype(
+        np.int32), device=dev)
+    inputs = TOKENS_ONLY
+    if cfg.family == "encdec":
+        inputs = LMInputs(frames=rng.standard_normal(
+            (b, frames, cfg.d_model)).astype(np.float32))
+    elif cfg.family == "vlm":
+        inputs = LMInputs(vision=rng.standard_normal(
+            (b, grid * grid, cfg.d_model)).astype(np.float32), grid=grid)
+    batch = inputs.prefill(cfg, toks[:, :-1], dev)
+    batch["labels"] = toks[:, 1:]
+    return batch
+
+
+def fam_a_step(a, dev) -> tuple:
+    """(a)'s one f32 step (AdamW, eps 1e-3) of ``a``'s config from its
+    parameters and batch on ``dev``: the loss and the parameters after the
+    step, on the host."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamW, warmup_cosine
+    opt = AdamW(lr=warmup_cosine(FAM["lr"], 1, FAM["steps"]), eps=1e-3)
+    p = tree.map(lambda x: x.to(dev, copy=True), a["params"])
+    b = tree.map(lambda x: x.to(dev), a["batch"])
+    p, _, met = steps.build_train_step(a["cut"], optimizer=opt)(
+        p, opt.init(p), b)
+    return float(met["loss"]), [x.cpu() for x in tree.leaves(p)]
+
+
+def fam_cut(published):
+    """Check (a)'s config: LM_CUT's depth (zamba2 one unit and its tail),
+    whisper's encoder cut alike, f32."""
+    layers = LM_CUT["hybrid_layers"] if published.family == "hybrid" \
+        else LM_CUT["layers"]
+    return dataclasses.replace(
+        published, n_layers=layers, dtype="float32",
+        enc_layers=min(published.enc_layers, LM_CUT["layers"]))
+
+
+def fam_cut_text(cut) -> str:
+    return (f"{cut.n_layers} layers" + (f" + {cut.enc_layers} encoder"
+                                        if cut.is_encdec else "")
+            + f", {FAM_A['batch']} x {FAM_A['seq']} tokens"
+            + (f", {FAM_A['frames']} frames" if cut.is_encdec else "")
+            + (f", a {FAM_A['grid']} x {FAM_A['grid']} image"
+               if cut.family == "vlm" else "") + ", f32")
+
+
+def fam_names(params) -> list:
+    """Dotted leaf names in ``repro_torch.tree``'s order."""
+    if isinstance(params, dict):
+        return [f"{k}.{n}" if n else k for k in sorted(params)
+                for n in fam_names(params[k])]
+    return [""]
+
+
+def fam_param_ratio(got, want, zero, names, tol) -> dict:
+    """The parameters after one step against the CPU's, each leaf's error
+    over its limit (the rules of tests/test_torch_parallel.py): ``tol``
+    of the leaf's largest entry; a key bias (zero gradient in exact
+    arithmetic) 1e-6 of the tree's largest entry; a leaf initialised to
+    zero, which holds the update alone (lr m / (sqrt(v) + eps), its last
+    bits moved 1 / eps times the gradient's), max(tol, 1e-4) of its
+    own. ``worst`` is the largest ratio; 1 is the limit."""
+    top = max(float(w.abs().max()) for w in want)
+    worst, where = 0.0, None
+    for g, w, z, n in zip(got, want, zero, names):
+        err = float((g - w).abs().max())
+        if n.endswith("wk.b"):
+            r = err / (1e-6 * top)
+        else:
+            lim = max(tol, 1e-4) if z else tol
+            r = err / (lim * max(float(w.abs().max()), 1e-30))
+        if r > worst:
+            worst, where = r, n
+    return {"worst": worst, "leaf": where}
+
+
 class RouteLog:
     """While active, records each MoE routing call (``moe._route``) as a
     summary on the host: the group, its count and the capacity, the most
@@ -1261,6 +1841,7 @@ class Smoke:
         self.kernels_per_call = {}  # name -> device kernels a call runs
         self.train_cfg = None  # the train phase's config (None: olmo-1b)
         self.gen = None       # the generate phase's model, prompts, caches
+        self.par_cfg = None   # the parallel phase's config (None: PAR_ARCH)
 
     # -- problems --------------------------------------------------------
 
@@ -4246,6 +4827,336 @@ class Smoke:
                     a_init_s=init_s, a_card_s=dev_s, a_cpu_s=cpu_s)
         print(f"{cfg.name} (a): router close step {close_router}, logit "
               f"close step {close_logit}", flush=True)
+
+    def par_config(self):
+        """PAR_ARCH at its published widths cut to PAR_LAYERS layers (a
+        rehearsal on the CPU sets ``self.par_cfg`` to a small config)."""
+        from repro_torch.configs import get_arch
+        return self.par_cfg or dataclasses.replace(get_arch(PAR_ARCH),
+                                                   n_layers=PAR_LAYERS)
+
+    def phase_parallel(self):
+        """Data- and model-parallel training on the card: PAR_ARCH at its
+        published width cut to PAR_LAYERS layers, PAR's traffic, each plan
+        of PAR_PLANS: D = 1 on NCCL in this process ((1, 1) mesh), then
+        PAR_SPAWNS (gloo ranks sharing the card), and with more cards
+        NCCL a rank a card. Checks: every rank the same loss bits and
+        logical arrays; each plan within PAR_TOL of the one-device f32
+        run; the planted fault (a rank skipping the data reduce) above
+        those limits; elastic restore (saved under model = 2 after step
+        1, restored under data x model with FSDP and under D = 1: the
+        same bits, step 2's loss within PAR_TOL["restore"]);
+        compressed_psum at D = 2 and 4 on CUDA tensors against its
+        formula; no port kernel launched."""
+        import multiprocessing as mp
+        import pickle
+        import shutil
+
+        import torch.distributed as dist
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        from repro_torch.launch import init_lane_group, make_host_mesh
+        from repro_torch.sharding import api as shapi
+        t_phase = time.perf_counter()
+        job_dir = Path(__file__).resolve().parent / "build" / "parallel"
+        shutil.rmtree(job_dir, ignore_errors=True)
+        job_dir.mkdir(parents=True)
+        backend = "nccl" if self.dev.type == "cuda" else "gloo"
+        cards = torch.cuda.device_count() if self.dev.type == "cuda" else 0
+        plans = dict(PAR_PLANS)
+        spawns = [(w, "gloo", names) for w, names in PAR_SPAWNS]
+        if cards >= plans[PAR_NCCL][0]:
+            spawns.append((plans[PAR_NCCL][0], "nccl", (PAR_NCCL,)))
+        for name, why in PAR_GLOO_REFUSED.items():
+            emit({"phase": "parallel", "plan": name, "gloo_refuses": why,
+                  "runs": "on NCCL" if cards >= plans[name][0] else
+                  f"on NCCL with {plans[name][0]} cards; this machine has "
+                  f"{cards}"})
+        cfg = self.par_config()
+        job = {"cfg": cfg, "ckpt": str(job_dir / "ckpt"), "plans": plans,
+               "device_type": self.dev.type, "par": dict(PAR)}
+        with open(job_dir / "job.pkl", "wb") as f:
+            pickle.dump(job, f)
+        seconds, summary, launches, want = {}, {}, {}, {}
+        reset_launches()
+
+        def group(tag):
+            init_lane_group(backend, 0, 1, store=dist.FileStore(
+                str(job_dir / f"store_{tag}"), 1), timeout_s=PAR_TIMEOUT_S)
+
+        def check_restore(rs, where):
+            assert rs["bit_equal"], f"parallel restore {where}: {rs}"
+            assert abs(rs["loss2"] - want["loss2"]) <= \
+                PAR_TOL["restore"] * abs(want["loss2"]), \
+                f"parallel restore {where}: {rs} vs {want['loss2']}"
+
+        def report(world, bk, by_rank):
+            """Emit and check one world's plans as soon as they return."""
+            for name in by_rank[0]:
+                if name in ("compress", "launches"):
+                    continue
+                recs = [r[name] for r in by_rank]
+                rec = recs[0]
+                _, model, fsdp, _ = plans[name]
+                line = {"phase": "parallel", "plan": name, "world": world,
+                        "backend": bk, "arch": cfg.name,
+                        "layers": cfg.n_layers, "d_model": cfg.d_model,
+                        "tokens_per_step": PAR["batch"] * PAR["seq"],
+                        "tol": PAR_TOL,
+                        **{k: rec[k] for k in ("losses", "loss_err",
+                                                "params_err", "m_err",
+                                                "sharded_leaves")},
+                        "same_loss_bits": all(r["loss_hex"]
+                                              == rec["loss_hex"]
+                                              for r in recs),
+                        "same_arrays": par_same_arrays(
+                            [r["digest"] for r in recs]),
+                        "params_err_ranks": max(r["params_err"]
+                                                for r in recs),
+                        "m_err_ranks": max(r["m_err"] for r in recs),
+                        "ranks": [r["times"] for r in recs],
+                        "checks_s": [r["checks_s"] for r in recs],
+                        "nvidia_smi": nvidia_smi()}
+                for k in ("fault", "restore"):
+                    if k in rec:
+                        line[k] = [r[k] for r in recs]
+                emit(line)
+                summary[f"{bk} D={world} {name}"] = {
+                    "step_s": max(t["step_s"] for t in line["ranks"]),
+                    "collective_host_s": max(t["collective_host_s"]
+                                             for t in line["ranks"])}
+                if name == PAR_SAVE:
+                    want["loss2"] = rec["losses"][1]
+                assert line["same_loss_bits"] and line["same_arrays"], \
+                    f"parallel {name}: the ranks differ"
+                assert rec["loss_err"] <= PAR_TOL["loss"], \
+                    f"parallel {name}: loss {rec['loss_err']}"
+                assert line["params_err_ranks"] <= PAR_TOL["params"], \
+                    f"parallel {name}: params {line['params_err_ranks']}"
+                assert line["m_err_ranks"] <= PAR_TOL["m"], \
+                    f"parallel {name}: moments {line['m_err_ranks']}"
+                assert (rec["sharded_leaves"] > 0) == (model > 1 or fsdp), \
+                    f"parallel {name}: {rec['sharded_leaves']} leaves split"
+                for f in line.get("fault", ()):
+                    assert f["params_err"] > PAR_TOL["params"] and \
+                        f["m_err"] > PAR_TOL["m"], \
+                        f"parallel {name}: the planted fault read {f}"
+                for rs in line.get("restore", ()):
+                    assert (rs["data_sharded_leaves"] > 0) == fsdp, rs
+                    check_restore(rs, f"{bk} D={world} {name}")
+            if "compress" in by_rank[0]:
+                comp = [r["compress"] for r in by_rank]
+                emit({"phase": "parallel", "compressed_psum": comp,
+                      "world": world, "backend": bk})
+                for c in comp:
+                    assert c["out_err"] <= PAR_TOL["compress"] and \
+                        c["res_err"] <= PAR_TOL["compress"], \
+                        f"compressed_psum D={world}: {c}"
+            for r in by_rank:
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+
+        t0 = time.perf_counter()
+        group("one")
+        try:
+            one = par_plans(1, ("D=1",), backend, self.dev, job)
+        finally:
+            dist.destroy_process_group()
+        seconds[f"{backend} D=1"] = time.perf_counter() - t0
+        report(1, backend, [one])
+        ctx = mp.get_context("spawn")
+        for world, bk, names in spawns:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=parallel_rank, args=(
+                r, world, bk, names, str(job_dir))) for r in range(world)]
+            for q in procs:
+                q.start()
+            deadline = time.monotonic() + PAR_TIMEOUT_S
+            for q in procs:
+                q.join(max(deadline - time.monotonic(), 0.0))
+            for q in procs:
+                if q.is_alive():
+                    q.kill()
+                    q.join()
+            codes = [q.exitcode for q in procs]
+            assert codes == [0] * world, \
+                f"parallel {bk} D={world}: rank exit codes {codes}"
+            by_rank = []
+            for r in range(world):
+                with open(job_dir / f"{bk}{world}_rank{r}.pkl", "rb") as f:
+                    by_rank.append(pickle.load(f))
+            seconds[f"{bk} D={world}"] = time.perf_counter() - t0
+            report(world, bk, by_rank)
+        # elastic restore under D = 1 (this process, NCCL)
+        t0 = time.perf_counter()
+        group("restore")
+        try:
+            mesh = make_host_mesh(device_type=self.dev.type)
+            restore1 = par_restore(
+                dataclasses.replace(cfg, dtype="float32"), mesh,
+                shapi.tp_plan(data_axes=("data",), model_axis="model"), 1,
+                job["ckpt"], self.dev)
+        finally:
+            dist.destroy_process_group()
+        seconds[f"{backend} D=1 restore"] = time.perf_counter() - t0
+        for k, v in LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        shutil.rmtree(job_dir, ignore_errors=True)
+        emit({"phase": "parallel", "restore_d1": restore1,
+              "uninterrupted_loss2": want["loss2"], "summary": summary,
+              "cards": cards, "seconds": seconds, "launches": launches,
+              "phase_s": time.perf_counter() - t_phase})
+        check_restore(restore1, "D=1")
+        assert not any(launches.values()), \
+            f"the parallel training path launched port kernels: {launches}"
+
+    def phase_train_families(self):
+        """The SSM, hybrid, enc-dec and VLM families trained on the card
+        (TRAIN_FAMILIES, FAM's traffic, bf16, AdamW warmup-cosine): (a)
+        the card against the port's CPU path, f32, one step at (a)'s cut,
+        with TF32 matmuls as the control that must read above the limit;
+        (b) the bf16 loss at step 0 against f32 at the same depth; (c)
+        the last loss below the first; (g) no port kernel launched. The
+        CPU's steps of (a) run on a thread while the card trains."""
+        import threading
+
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        t_phase = time.perf_counter()
+        reset_launches()
+        jobs, cpu = [], {}
+
+        def cpu_worker():
+            for name, a in jobs:
+                t0 = time.perf_counter()
+                try:
+                    cpu[name] = fam_a_step(a, torch.device("cpu"))
+                except BaseException as e:  # raised below
+                    cpu[name] = e
+                a["cpu_s"] = time.perf_counter() - t0
+
+        lines = []
+        for name, layers in TRAIN_FAMILIES:
+            jobs.append((name, self.family_a_inputs(name)))
+        worker = threading.Thread(target=cpu_worker, daemon=True)
+        worker.start()
+        try:
+            for (name, layers), (_, a) in zip(TRAIN_FAMILIES, jobs):
+                a["card"] = fam_a_step(a, self.dev)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    a["tf32"] = fam_a_step(a, self.dev)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                    torch.backends.cudnn.allow_tf32 = False
+                lines.append(self.family_train(name, layers))
+                self.free_lm("train_families")
+        finally:
+            worker.join()
+        for line, (name, a) in zip(lines, jobs):
+            got = cpu[name]
+            if isinstance(got, BaseException):
+                raise got
+            self.family_a_check(a, got, line)
+        launches = dict(LAUNCHES)
+        emit({"phase": "train_families", "launches": launches,
+              "seconds": time.perf_counter() - t_phase})
+        assert not any(launches.values()), \
+            f"the family training launched port kernels: {launches}"
+
+    def family_train(self, name, layers) -> dict:
+        """(b), the bf16 run of FAM["steps"] steps and (c) for one family
+        (its (a) lines are added when the CPU's steps are in)."""
+        from repro_torch import tree
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import steps
+        from repro_torch.models import model as M
+        from repro_torch.optim import AdamW, warmup_cosine
+        t0 = time.perf_counter()
+        published = get_arch(name)
+        cfg = dataclasses.replace(published, n_layers=layers)
+        line = {"phase": "train_families", "arch": name, "family":
+                cfg.family, "layers": layers, "of_layers":
+                published.n_layers, "enc_layers": cfg.enc_layers,
+                "d_model": cfg.d_model, "dtype": cfg.dtype,
+                "param_count": cfg.param_count(), "nvidia_smi": nvidia_smi()}
+        batch = fam_batch(cfg, FAM["batch"], fam_text(cfg), self.dev,
+                          frames=FAM["frames"], grid=FAM["grid"])
+        params, _ = M.init_model(SEED, cfg, device=self.dev)
+        # (b) the step-0 loss in bf16 against f32 at the same depth
+        with torch.no_grad():
+            l16 = float(M.loss_fn(cfg, params, batch)[0])
+            p32 = tree.map(lambda x: x.to(torch.float32), params)
+            l32 = float(M.loss_fn(dataclasses.replace(
+                cfg, dtype="float32"), p32, batch)[0])
+            del p32
+        torch.cuda.empty_cache()
+        line.update(b_loss_bf16=l16, b_loss_f32=l32,
+                    b_rel=abs(l16 - l32) / abs(l32))
+        assert line["b_rel"] <= TRAIN_TOL["bf16"], f"(b) {name} {line}"
+        opt = AdamW(lr=warmup_cosine(FAM["lr"], 1, FAM["steps"]))
+        state = opt.init(params)
+        step = steps.build_train_step(cfg, optimizer=opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(FAM["steps"]):
+            t1 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            step_s.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        del params, state
+        positions = fam_positions(cfg, FAM["batch"])
+        sps = float(np.median(step_s[1:]))
+        line.update(
+            losses=losses, step_s=step_s, seconds_per_step=sps,
+            positions_per_step=positions, tokens_per_s=positions / sps,
+            bf16_peak_share=6 * cfg.param_count() * positions / sps
+            / BF16_PEAK, max_memory_allocated=peak,
+            seconds=time.perf_counter() - t0)
+        emit(line)
+        # (c) the loss falls
+        assert losses[-1] < losses[0], f"(c) {name}: {losses}"
+        return line
+
+    def family_a_inputs(self, name) -> dict:
+        """(a)'s config, parameters (drawn on the card, then copied to the
+        host) and batch for one family."""
+        from repro_torch import tree
+        from repro_torch.configs import get_arch
+        from repro_torch.models import model as M
+        cut = fam_cut(get_arch(name))
+        params = tree.map(lambda x: x.cpu(), M.init_model(
+            SEED, cut, device=self.dev)[0])
+        return {"cut": cut, "params": params,
+                "zero": [not bool(torch.any(x)) for x in tree.leaves(params)],
+                "names": fam_names(params),
+                "batch": fam_batch(cut, FAM_A["batch"], FAM_A["seq"],
+                                   torch.device("cpu"),
+                                   frames=FAM_A["frames"], grid=FAM_A["grid"])}
+
+    def family_a_check(self, a, cpu, line) -> None:
+        """(a): the card's step against the CPU's, the loss within
+        ``lm_tol(cfg, "cpu")`` relative and the parameters by
+        ``fam_param_ratio``'s rules; the TF32 control above the limit."""
+        cut = a["cut"]
+        tol = lm_tol(cut, "cpu")
+        (l_dev, p_dev), (l_tf, p_tf), (l_cpu, p_cpu) = a["card"], a["tf32"], \
+            cpu
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        ratio = fam_param_ratio(p_dev, p_cpu, a["zero"], a["names"], tol)
+        tf_loss = abs(l_tf - l_cpu) / abs(l_cpu)
+        tf_ratio = fam_param_ratio(p_tf, p_cpu, a["zero"], a["names"], tol)
+        out = dict(arch=line["arch"], a_cut=fam_cut_text(cut), a_tol=tol,
+                   a_loss_card=l_dev, a_loss_cpu=l_cpu, a_loss_rel=loss_rel,
+                   a_params_ratio=ratio, a_tf32_loss_rel=tf_loss,
+                   a_tf32_params_ratio=tf_ratio, a_cpu_s=a["cpu_s"])
+        line.update(out)
+        emit({"phase": "train_families", **out})
+        assert loss_rel <= tol and ratio["worst"] <= 1.0, \
+            f"(a) {cut.name}: loss {loss_rel}, params {ratio}"
+        assert max(tf_loss / tol, tf_ratio["worst"]) > 1.0, \
+            f"(a) {cut.name}: the TF32 control read within the limit"
 
     def phase_profile(self):
         """Where the time goes: for each path call, warm, its host

@@ -1,5 +1,6 @@
-"""Process-group and mesh set-up for the port's multi-device lanes
-(counterpart of ``repro.launch.mesh``'s lane mesh), and the one-card
-training and serving launchers (``launch.train``, ``launch.serve``,
-``launch.steps``) and the input-shape table (``launch.shapes``)."""
-from .mesh import init_lane_group, make_lane_mesh  # noqa: F401
+"""Process-group and mesh set-up (counterpart of ``repro.launch.mesh``:
+the model meshes and the lane mesh), the training and serving launchers
+(``launch.train``, ``launch.serve``, ``launch.steps``) and the
+input-shape table (``launch.shapes``)."""
+from .mesh import (data_axes_for, init_lane_group,  # noqa: F401
+                   make_host_mesh, make_lane_mesh, make_production_mesh)

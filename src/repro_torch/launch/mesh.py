@@ -1,5 +1,8 @@
-"""The 1-D lane mesh of the sharded quadrature driver (counterpart of
-``repro.launch.mesh.make_lane_mesh``; DESIGN.md Sec. 7).
+"""Mesh construction (counterpart of ``repro.launch.mesh``): the model
+meshes (``make_host_mesh``, data x model over every rank;
+``make_production_mesh``, the assigned 16 x 16 pod and 2 x 16 x 16
+multi-pod) and the 1-D lane mesh of the sharded quadrature driver
+(``make_lane_mesh``; DESIGN.md Sec. 7).
 
 The reference builds its mesh over the devices one process sees. Here
 every rank is a process, started by the caller (``torchrun``, or
@@ -12,8 +15,8 @@ mesh spans the default process group::
 
 On a card per rank the group is NCCL. Ranks that share a card run a gloo
 group, which the caller names: nothing switches the backend silently.
-``make_production_mesh`` / ``make_host_mesh`` (the model meshes) are not
-ported.
+Every mesh is a function, not a module constant: importing this module
+touches no process group.
 """
 from __future__ import annotations
 
@@ -61,6 +64,70 @@ def init_lane_group(backend: str, rank: int, world_size: int, *,
         backend, init_method=init_method, store=store, rank=rank,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _group_world(what: str) -> int:
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"{what} needs an initialised default process group: call "
+            f"launch.init_lane_group (or torch.distributed."
+            f"init_process_group with a timeout) on every rank first")
+    return dist.get_world_size()
+
+
+def _model_mesh(shape: tuple, names: tuple, device_type: str):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device_type='cuda' but CUDA is not "
+                               "available; pass device_type='cpu'")
+        world = dist.get_world_size()
+        _check_cards(dist.get_backend(), world)
+        torch.cuda.set_device(_local_rank(dist.get_rank())
+                              % torch.cuda.device_count())
+    n = 1
+    for s in shape:
+        n *= s
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The assigned production mesh: (16, 16) named ("data", "model"), or
+    (2, 16, 16) named ("pod", "data", "model"), over every rank of the
+    default group, which must hold exactly 256 (512) ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for s in shape:
+        need *= s
+    world = _group_world("make_production_mesh")
+    if world != need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks; "
+                         f"the group has world size {world}")
+    return _model_mesh(shape, names, device_type)
+
+
+def make_host_mesh(model: int = 1, *, device_type: str = "cuda"):
+    """Every rank of the default group as (world // model, model) named
+    ("data", "model"), on ``device_type`` (the caller's: 'cuda', or 'cpu'
+    for gloo ranks on the host)."""
+    world = _group_world("make_host_mesh")
+    if model < 1 or world % model:
+        raise ValueError(f"model={model} does not divide the world size "
+                         f"{world}")
+    return _model_mesh((world // model, model), ("data", "model"),
+                       device_type)
+
+
+def data_axes_for(mesh) -> tuple:
+    """The mesh's data-parallel axes: those of ("pod", "data") it has."""
+    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
 
 
 def make_lane_mesh(num_devices: int | None = None, *, axis: str = "lanes",

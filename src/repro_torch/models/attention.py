@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..sharding.api import constrain, einsum
 from . import common as cm
 
 Tensor = torch.Tensor
@@ -78,15 +79,21 @@ def _group_q(q: Tensor, hkv: int) -> Tensor:
     return q.reshape(b, t, hkv, h // hkv, d)
 
 
-def _attend(qg: Tensor, k: Tensor, v: Tensor, m: Tensor) -> Tensor:
+def _attend(qg: Tensor, k: Tensor, v: Tensor, m: Tensor, *,
+            kv_seq: bool = False) -> Tensor:
     """softmax(qg k^T / sqrt(d), masked) v for grouped queries
-    (B, T, Hkv, G, D) -> (B, T, Hkv, G, D)."""
+    (B, T, Hkv, G, D) -> (B, T, Hkv, G, D). ``kv_seq`` pins the scores and
+    the probabilities to the sequence-sharded KV layout (``constrain``)."""
     d = qg.shape[-1]
-    scores = torch.einsum("btkgd,bskd->bkgts", qg.to(torch.float32),
+    scores = einsum("btkgd,bskd->bkgts", qg.to(torch.float32),
                           k.to(torch.float32)) / (d ** 0.5)
+    if kv_seq:
+        scores = constrain(scores, ("batch", None, None, None, "kv_seq"))
     scores = scores.masked_fill(~m, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype), v)
+    if kv_seq:
+        p = constrain(p, ("batch", None, None, None, "kv_seq"))
+    return einsum("bkgts,bskd->btkgd", p.to(v.dtype), v)
 
 
 def _sdpa_full(q, k, v, *, causal, window):
@@ -165,8 +172,9 @@ def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
     the device (no host read).
 
     ``onehot=True`` (single-token decode only) writes through a one-hot
-    select over the sequence axis, as the reference does for its
-    sequence-sharded layout; on one device it gives the same values."""
+    select over the sequence axis, kept in the cache's sequence-sharded
+    layout (``constrain``), as the reference does; on one device it gives
+    the same values."""
     t_new = k_new.shape[1]
     s_max = cache.k.shape[1]
 
@@ -176,7 +184,8 @@ def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
         oh = (pos == cache.length)[None, :, None, None]
 
         def upd(buf, val):
-            buf.copy_(torch.where(oh, val.to(buf.dtype), buf))
+            buf.copy_(constrain(torch.where(oh, val.to(buf.dtype), buf),
+                                ("batch", "kv_seq", None, None)))
     else:
         start = torch.clamp(cache.length, max=s_max - t_new).long()
         idx = start + torch.arange(t_new, device=cache.k.device)
@@ -210,16 +219,20 @@ def _cache_kv(cache: KVCache):
 
 def _sdpa_decode(q, cache: KVCache, *, window, constrain_kv=False):
     """q: (B, 1, H, D) against the whole cache, the unwritten tail masked.
-    ``constrain_kv`` pins the reference's sequence-sharded layout; on one
-    device there is nothing to pin."""
-    del constrain_kv
+    ``constrain_kv`` pins the reference's sequence-sharded KV layout
+    through the scores and the probabilities, so that the softmax reduces
+    over the sharded axis (a no-op without ``activation_context``)."""
     b, t, h, d = q.shape
     k, v = _cache_kv(cache)
+    if constrain_kv:
+        k = constrain(k, ("batch", "kv_seq", None, None))
+        v = constrain(v, ("batch", "kv_seq", None, None))
     s = k.shape[1]
     rows = (cache.length - 1)[None, None]     # the query's position
     cols = torch.arange(s, device=q.device)[None, :]
     m = _mask(rows, cols, causal=True, window=window, s_valid=cache.length)
-    return _attend(_group_q(q, k.shape[2]), k, v, m).reshape(b, t, h, d)
+    return _attend(_group_q(q, k.shape[2]), k, v, m,
+                   kv_seq=constrain_kv).reshape(b, t, h, d)
 
 
 def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import einsum, is_dtensor
+
 Tensor = torch.Tensor
 
 
@@ -91,8 +93,22 @@ def dense_apply(p, x: Tensor) -> Tensor:
         x, w = x.to(dt), w.to(dt)
     y = x @ w
     if "b" in p:
+        if is_dtensor(y):
+            y = settle_partial(y)
         y = y + p["b"]
     return y
+
+
+def settle_partial(x):
+    """A DTensor's partial sums reduced (``Replicate`` where it was
+    ``Partial``): a row-parallel product before its bias, which a partial
+    tensor cannot take on every torch version."""
+    from torch.distributed.tensor import Replicate
+
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +215,16 @@ def embed_init(make, vocab: int, dim: int, dtype):
 
 
 def embed_apply(p, tokens: Tensor) -> Tensor:
-    return F.embedding(tokens.long(), p["table"])
+    table = p["table"]
+    if is_dtensor(table):
+        from ..sharding.api import sharded_embedding
+
+        return sharded_embedding(table, tokens)
+    return F.embedding(tokens.long(), table)
+
 
 
 def unembed_logits(p_embed, x: Tensor) -> Tensor:
     """Tied unembedding (x @ table^T) in f32 for a stable CE."""
-    return torch.einsum("...d,vd->...v", x.to(torch.float32),
+    return einsum("...d,vd->...v", x.to(torch.float32),
                         p_embed["table"].to(torch.float32))

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.api import constrain, einsum, logsumexp
+
 Tensor = torch.Tensor
 
 
@@ -28,10 +30,11 @@ def chunked_cross_entropy(x: Tensor, embed_table: Tensor, labels: Tensor,
     tot, cnt, zacc = zero, zero, zero
     for i in range(t // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = torch.einsum("bcd,vd->bcv", x[:, sl].to(torch.float32),
-                              table)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        logits = einsum("bcd,vd->bcv", x[:, sl].to(torch.float32), table)
+        lse = logsumexp(logits)
+        # under a mesh the gather of vocab-sharded logits is partial
+        gold = constrain(torch.gather(logits, -1, labels[:, sl, None].long()),
+                         ("batch", "seq", None))[..., 0]
         mi = mask[:, sl]
         tot = tot + ((lse - gold) * mi).sum()
         cnt = cnt + mi.sum()

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..core.operators import resolve_device
+from ..sharding.api import constrain
 from . import attention as attn
 from . import common as cm
 from . import losses
@@ -128,6 +129,7 @@ def dense_block_apply(cfg, p, x: Tensor, *, positions: Tensor,
     o, cache = attn.attn_apply(cfg, p["attn"], h, positions=positions,
                                mode=mode, cache=cache, window=window)
     x = x + o
+    x = constrain(x, ("batch", "seq", "embed"))
     if "xattn" in p:
         h = cm.norm_apply(cfg.norm, p["lnx"], x)
         o, _ = attn.attn_apply(cfg, p["xattn"], h, positions=positions,
@@ -141,7 +143,8 @@ def dense_block_apply(cfg, p, x: Tensor, *, positions: Tensor,
             o = o + cm.mlp_apply(cfg, p["mlp"], h)
     else:
         o = cm.mlp_apply(cfg, p["mlp"], h)
-    return x + o, cache, aux
+    x = x + o
+    return constrain(x, ("batch", "seq", "embed")), cache, aux
 
 
 def ssm_block_init(make, cfg, dtype):
@@ -156,7 +159,8 @@ def ssm_block_apply(cfg, p, x: Tensor, *, mode: str, cache=None):
     place)."""
     h = cm.norm_apply(cfg.norm, p["ln"], x)
     o, cache = ssm_mod.ssm_apply(cfg, p["ssm"], h, mode=mode, cache=cache)
-    return x + o, cache
+    x = x + o
+    return constrain(x, ("batch", "seq", "embed")), cache
 
 
 def _moe_kinds(cfg) -> list:
@@ -299,8 +303,8 @@ def _scan_stack(cfg, stack_params, x: Tensor, apply_one, caches=None, *,
     Returns ``(x, caches, aux)``, aux summed over the stack (0.0 where no
     layer has one). The leaves are unbound once, so the backward pass
     stacks each leaf's layer gradients in one go; only training
-    recomputes blocks (``cfg.remat``; ``remat=False`` for a stack inside
-    a block that is recomputed already)."""
+    recomputes blocks (``cfg.remat``; ``remat=False`` leaves a stack's
+    blocks to the recompute of the block around it)."""
     leaves, spec = tree.flatten(stack_params)
     layers = [leaf.unbind(0) for leaf in leaves]
     n = leaves[0].shape[0]
@@ -363,7 +367,7 @@ def _embed_inputs(cfg, params, batch):
     if cfg.rope == "none":   # sinusoidal absolute positions
         x = x + _sinusoid(x.shape[1], x.shape[2],
                           device=x.device).to(x.dtype)
-    return x, positions, mask
+    return constrain(x, ("batch", "seq", "embed")), positions, mask
 
 
 def _cross_kv(cfg, p_i, enc_memory: Tensor) -> tuple:
@@ -421,9 +425,10 @@ def _apply_stacks(cfg, params, x: Tensor, *, mode: str, positions: Tensor,
     shared = params["shared_attn"]
 
     def unit_one(p_u, x, c_u):
+        # each Mamba block recomputed on its own inside the unit's
+        # recompute: the backward holds one block's scan states at a time
         x, _, _ = _scan_stack(cfg, p_u["ssm_stack"], x, mamba,
-                              None if c_u is None else c_u["ssm"],
-                              remat=False)
+                              None if c_u is None else c_u["ssm"])
         return dense_block_apply(cfg, shared, x, positions=positions,
                                  mode=mode,
                                  cache=None if c_u is None else c_u["attn"],
@@ -656,6 +661,7 @@ def decode_step(cfg, params, caches, batch):
     if cfg.rope == "none":
         x = x + _sinusoid(1, x.shape[2], offset=pos.reshape(-1)[0],
                           device=x.device).to(x.dtype)
+    x = constrain(x, ("batch", "seq", "embed"))
     x, caches, _ = _apply_stacks(cfg, params, x, mode="decode",
                                  positions=pos, caches=caches,
                                  enc_memory=enc_memory)

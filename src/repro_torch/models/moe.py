@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import einsum
 from . import common as cm
 
 Tensor = torch.Tensor
@@ -78,7 +79,7 @@ def _route(cfg, p, x: Tensor, *, group_size: int = 4096,
     e = cfg.moe_experts
     g, cap = group_and_capacity(cfg, b * t, group_size, dropless)
     xt = x.reshape(-1, g, d)
-    logits = torch.einsum("nsd,de->nse", xt.to(torch.float32),
+    logits = einsum("nsd,de->nse", xt.to(torch.float32),
                           p["router"]["w"])
     probs = torch.softmax(logits, dim=-1)
     slots = torch.arange(cap, device=x.device)
@@ -115,14 +116,14 @@ def moe_apply(cfg, p, x: Tensor, *, group_size: int = 4096,
     r = _route(cfg, p, x, group_size=group_size, dropless=dropless)
     xt = x.reshape(-1, r.group, d)
     # tokens -> (E, n, cap, d), the experts, and back
-    xe = torch.einsum("ngd,ngec->encd", xt, r.dispatch)
-    h = torch.einsum("encd,edf->encf", xe, p["wi"])
+    xe = einsum("ngd,ngec->encd", xt, r.dispatch)
+    h = einsum("encd,edf->encf", xe, p["wi"])
     if "wg" in p:
-        h = F.silu(h) * torch.einsum("encd,edf->encf", xe, p["wg"])
+        h = F.silu(h) * einsum("encd,edf->encf", xe, p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("encf,efd->encd", h, p["wo"])
-    y = torch.einsum("encd,ngec->ngd", ye, r.combine.to(ye.dtype))
+    ye = einsum("encf,efd->encd", h, p["wo"])
+    y = einsum("encd,ngec->ngd", ye, r.combine.to(ye.dtype))
     me = r.probs.mean(dim=(0, 1))
     ce = F.one_hot(torch.argmax(r.probs, dim=-1), e).to(
         torch.float32).mean(dim=(0, 1))

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import einsum
 from . import common as cm
 
 Tensor = torch.Tensor
@@ -107,8 +108,13 @@ def _scan_linear(a: Tensor, b: Tensor, h0: Optional[Tensor] = None):
     ...). Returns h (B, T, ...)."""
     hs = []
     h = h0
-    for t in range(b.shape[1]):
-        h = b[:, t] if h is None else torch.addcmul(b[:, t], a[:, t], h)
+    # the steps as views of one unbind: the backward stacks their
+    # gradients once, where a slice a step would write a zero-filled copy
+    # of the whole chunk for each step's gradient and sum them
+    bs = b.unbind(1)
+    as_ = a.unbind(1) if a.shape[1] == b.shape[1] else [a[:, 0]] * len(bs)
+    for t in range(len(bs)):
+        h = bs[t] if h is None else torch.addcmul(bs[t], as_[t], h)
         hs.append(h)
     return torch.stack(hs, dim=1)
 
@@ -124,7 +130,7 @@ def _chunked_scan(make_ab, cmat: Tensor, h0: Optional[Tensor], t: int,
         sl = slice(s, min(s + SCAN_CHUNK, t))
         abar, bx = make_ab(sl)
         hs = _scan_linear(abar, bx, h)
-        ys.append(torch.einsum(contract, hs, cmat[:, sl]))
+        ys.append(einsum(contract, hs, cmat[:, sl]))
         h = hs[:, -1]
     return torch.cat(ys, dim=1), h
 
@@ -154,7 +160,7 @@ def mamba1_core(cfg, p, xz: Tensor, cache: Optional[SSMCache], mode: str):
     if mode == "decode":
         abar, bx = make_ab(slice(0, 1))
         h = abar[:, 0] * cache.state + bx[:, 0]          # (B, di, n)
-        y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
+        y = einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
         new_state = h
     else:
         h0 = cache.state if cache is not None else None
@@ -195,15 +201,15 @@ def _ssd_chunked(abar, dtx, bmat, cmat, h0, chunk: int):
     for i in range(nc):
         cum_c, dtx_c, b_c, c_c = cum[:, i], dtxc[:, i], bc[:, i], cc[:, i]
         decay_in = torch.exp(cum_c)                     # (B, Q, H)
-        y_inter = torch.einsum("bqn,bhdn->bqhd", c_c, hin) \
+        y_inter = einsum("bqn,bhdn->bqhd", c_c, hin) \
             * decay_in[..., None]
-        scores = torch.einsum("bqn,bsn->bqs", c_c, b_c)
+        scores = einsum("bqn,bsn->bqs", c_c, b_c)
         m = cum_c[:, :, None, :] - cum_c[:, None, :, :]  # (B, Q, S, H)
         mask = torch.where(causal, torch.exp(m), 0.0)
-        y_intra = torch.einsum("bqs,bqsh,bshd->bqhd", scores, mask, dtx_c)
+        y_intra = einsum("bqs,bqsh,bshd->bqhd", scores, mask, dtx_c)
         decay_out = torch.exp(cum_c[:, -1:, :] - cum_c)  # (B, Q, H)
         hout = hin * torch.exp(cum_c[:, -1])[:, :, None, None]
-        hin = hout + torch.einsum("bsh,bshd,bsn->bhdn", decay_out, dtx_c,
+        hin = hout + einsum("bsh,bshd,bsn->bhdn", decay_out, dtx_c,
                                   b_c)
         ys.append(y_inter + y_intra)
     return torch.stack(ys, dim=1).reshape(b, t, h, dh), hin
@@ -232,7 +238,7 @@ def mamba2_core(cfg, p, xz: Tensor, cache: Optional[SSMCache], mode: str):
         bx = dt[:, 0, :, None, None] * xh[:, 0, :, :, None] \
             * bmat[:, 0, None, None, :]                 # (B, H, dh, n)
         h = abar[:, 0, :, None, None] * cache.state + bx
-        y = torch.einsum("bhdn,bn->bhd", h, cmat[:, 0])[:, None]
+        y = einsum("bhdn,bn->bhd", h, cmat[:, 0])[:, None]
         y = y.reshape(y.shape[0], 1, di)
         new_state = h
     elif cfg.ssm_impl == "chunked":

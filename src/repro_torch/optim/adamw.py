@@ -5,6 +5,14 @@ The moments and the clipped gradients are f32 whatever the parameters'
 dtype (bf16 parameters, f32 optimizer state). Where the reference returns
 new trees, ``update`` writes the parameters (in their own dtype) and the
 moments in place and returns them: the caller's tensors are the state.
+
+Over a mesh the parameters, gradients and moments are DTensors placed
+alike (``launch.steps``); the moments are placed like their parameters
+(ZeRO: a parameter's FSDP shard carries its moments' shard). The clip
+norm then sums every leaf's squares over the whole mesh, each replica
+counted once, and reduces over each mesh dimension in turn, so every rank
+gets the same bits; ``count`` stays a plain host tensor, the same on
+every rank. Plain leaves keep the one-device arithmetic, bit for bit.
 """
 from __future__ import annotations
 
@@ -14,6 +22,30 @@ from typing import Any, NamedTuple
 import torch
 
 from .. import tree
+from ..sharding.api import is_dtensor
+
+
+def _mesh_norm(gs: list) -> torch.Tensor:
+    """sqrt of the sum of squares of DTensor leaves over their whole mesh,
+    a plain tensor with the same bits on every rank: each rank adds its
+    local squares, a leaf replicated over mesh dims divided by their size
+    (exact for powers of two), then one all-reduce a mesh dimension."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    mesh = gs[0].device_mesh
+    total = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    for g in gs:
+        rep = 1
+        for size, pl in zip(mesh.shape, g.placements):
+            if isinstance(pl, Replicate):
+                rep *= size
+        loc = g.to_local()
+        total = total + torch.sum(loc * loc) / rep
+    for d in range(mesh.ndim):
+        if mesh.shape[d] > 1:
+            dist.all_reduce(total, group=mesh.get_group(d))
+    return torch.sqrt(total)
 
 
 class AdamWState(NamedTuple):
@@ -37,6 +69,8 @@ class AdamW(NamedTuple):
 
     def init(self, params) -> AdamWState:
         def zeros(p):
+            if is_dtensor(p):   # placed like the parameter
+                return torch.zeros_like(p, dtype=torch.float32)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
         return AdamWState(count=torch.zeros((), dtype=torch.int32),
@@ -48,13 +82,25 @@ class AdamW(NamedTuple):
         """One step: ``(params, state, {"grad_norm", "lr"})``, the first two
         the same tensors as given, updated in place."""
         g32 = [g.to(torch.float32) for g in tree.leaves(grads)]
+        if g32 and is_dtensor(g32[0]):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            with implicit_replication():   # the 0-d scale meets DTensors
+                return self._update(g32, state, params, _mesh_norm)
+        return self._update(g32, state, params, None)
+
+    def _update(self, g32, state, params, mesh_norm):
         if self.clip_norm:
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g32))
+            gnorm = mesh_norm(g32) if mesh_norm else \
+                torch.sqrt(sum(torch.sum(g * g) for g in g32))
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
         else:
             gnorm, scale = torch.zeros(()), None
-        count = state.count + 1
+        # a count restored onto a mesh is a replicated DTensor
+        count = (state.count.to_local() if is_dtensor(state.count)
+                 else state.count) + 1
         c = count.to(torch.float32)
         lr = _f32(self.lr(count) if callable(self.lr) else self.lr)
         b1c = _f32(1.0 - torch.tensor(self.b1, dtype=torch.float32) ** c)

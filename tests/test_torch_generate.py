@@ -257,11 +257,13 @@ def test_serve_steps_smoke_and_consistency(pair):
 
 
 def test_serve_steps_take_no_mesh():
+    """A mesh without a plan (or a plan without a mesh) is refused; the
+    steps over a mesh are held in tests/test_torch_parallel.py."""
     cfg = get_arch("olmo-1b").reduced()
     for build in (steps.build_prefill_step, steps.build_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="together"):
             build(cfg, mesh=object())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="together"):
             build(cfg, plan=object())
 
 

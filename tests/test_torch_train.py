@@ -165,15 +165,6 @@ def test_train_step_matches_reference(ref, microbatches):
     _close(convert.params_to_numpy(ts2.m), jax.tree.leaves(rs2.m), 1e-4)
 
 
-def test_sharded_step_raises():
-    cfg = get_arch(NAME).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tsteps.build_train_step(cfg, object(), object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tlaunch.main(["--arch", NAME, "--smoke", "--model-parallel", "2",
-                      "--device", "cpu"])
-
-
 # -- loop ------------------------------------------------------------------
 
 
