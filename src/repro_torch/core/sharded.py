@@ -104,8 +104,9 @@ def _staged(x: Tensor, group) -> bool:
 
 def _all_gather(out: Tensor, x: Tensor, group) -> None:
     # all_gather_single supersedes all_gather_into_tensor where it exists
-    fn = getattr(dist, "all_gather_single", None) \
-        or dist.all_gather_into_tensor
+    fn = (getattr(dist, "all_gather_single", None)
+          # quadlint: disable=QL007 -- the cadence gather of _round_gather
+          or dist.all_gather_into_tensor)
     fn(out, x, group=group)
 
 

@@ -153,7 +153,8 @@ def downdate(f: ChainFactor, y) -> ChainFactor:
     out[:count - 1, :count - 1] = chol[keep[:count - 1]][:, keep[:count - 1]]
     idx = torch.full_like(f.idx, f.n)
     idx[:count - 1] = f.idx[keep[:count - 1]]
-    return dataclasses.replace(f, idx=idx, chol=out, count=f.count - 1)
+    return dataclasses.replace(f, idx=idx, chol=out, count=f.count - 1,
+                               ok=f.ok)
 
 
 def solve_w(f: ChainFactor, u: Tensor) -> Tensor:

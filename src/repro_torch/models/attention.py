@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..sharding.api import constrain, einsum
+from ..sharding.api import constrain, einsum, index_write, is_dtensor, \
+    masked_fill, whole_heads, whole_heads_grad, whole_local
 from . import common as cm
 
 Tensor = torch.Tensor
@@ -49,7 +50,7 @@ def attn_init(make, cfg, dtype):
 
 def _split_heads(x: Tensor, n: int) -> Tensor:
     b, t, _ = x.shape
-    return x.reshape(b, t, n, -1)
+    return whole_heads(x, n).reshape(b, t, n, -1)
 
 
 def _repeat_kv(k: Tensor, n_heads: int) -> Tensor:
@@ -89,7 +90,7 @@ def _attend(qg: Tensor, k: Tensor, v: Tensor, m: Tensor, *,
                           k.to(torch.float32)) / (d ** 0.5)
     if kv_seq:
         scores = constrain(scores, ("batch", None, None, None, "kv_seq"))
-    scores = scores.masked_fill(~m, NEG_INF)
+    scores = masked_fill(scores, ~m, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     if kv_seq:
         p = constrain(p, ("batch", None, None, None, "kv_seq"))
@@ -174,11 +175,20 @@ def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
     ``onehot=True`` (single-token decode only) writes through a one-hot
     select over the sequence axis, kept in the cache's sequence-sharded
     layout (``constrain``), as the reference does; on one device it gives
-    the same values."""
+    the same values. A cache of DTensors (split over a mesh) is written
+    rank by rank (``sharding.api.index_write``), each rank its rows."""
     t_new = k_new.shape[1]
     s_max = cache.k.shape[1]
 
-    if onehot and t_new == 1:
+    if is_dtensor(cache.k):
+        # a cache split over the mesh: each rank writes its rows
+        start = torch.clamp(whole_local(cache.length),
+                            max=s_max - t_new).long()
+        idx = start + torch.arange(t_new, device=start.device)
+
+        def upd(buf, val):
+            index_write(buf, 1, idx, val.to(buf.dtype))
+    elif onehot and t_new == 1:
         pos = torch.arange(s_max, dtype=cache.length.dtype,
                            device=cache.k.device)
         oh = (pos == cache.length)[None, :, None, None]
@@ -283,7 +293,8 @@ def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
     # against f32 weights widens to f32); an f32 cache under bf16 weights,
     # whose f32 output the reference's scan carry refuses (ROADMAP Queue
     # 3), joins the bf16 residual stream here.
-    out = out.reshape(b, t, cfg.n_heads * hd).to(p["wo"]["w"].dtype)
+    out = whole_heads_grad(out.reshape(b, t, cfg.n_heads * hd),
+                           cfg.n_heads).to(p["wo"]["w"].dtype)
     return cm.dense_apply(p["wo"], out), cache
 
 

@@ -54,9 +54,12 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def _f32(x) -> float:
-    """A value rounded to f32, as a Python float (exact in f32 math)."""
-    return float(torch.as_tensor(x, dtype=torch.float32))
+def _f32(x) -> torch.Tensor:
+    """A value rounded to f32, as a 0-d f32 tensor on the host. It meets
+    the leaves as a Python float would (rounded to f32, the same bits),
+    without reading a value back: a step traced on fake tensors
+    (``launch.dryrun``) has no value to read."""
+    return torch.as_tensor(x, dtype=torch.float32, device="cpu")
 
 
 class AdamW(NamedTuple):
@@ -117,7 +120,7 @@ class AdamW(NamedTuple):
                 + self.weight_decay * p32
             p.copy_(p32 - lr * step)
         return params, AdamWState(count=count, m=state.m, v=state.v), \
-            {"grad_norm": gnorm, "lr": torch.tensor(lr, dtype=torch.float32)}
+            {"grad_norm": gnorm, "lr": lr}
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

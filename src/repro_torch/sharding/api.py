@@ -472,12 +472,32 @@ def _local_einsum(eq: str, ops):
     for t, o in zip(terms, ops):
         for c, n in zip(t, o.shape):
             sizes[c] = max(sizes.get(c, 1), n)
-    locs = [o.redistribute(mesh, w).to_local(grad_placements=g)
-            for o, w, g in zip(ops, want, grad)]
+    locs = [_contiguous_grad(o.redistribute(mesh, w).to_local(
+        grad_placements=g)) for o, w, g in zip(ops, want, grad)]
     res = torch.einsum(eq, *locs).contiguous()
     shape = torch.Size(sizes[c] for c in out)
     return DTensor.from_local(res, mesh, out_pl, run_check=False,
                               shape=shape, stride=_contiguous(shape))
+
+
+def _contiguous_grad(x):
+    """``x``, whose gradient is made contiguous on its way back. An
+    einsum's operand gradients come back permuted (batched products), and
+    a DTensor made from such a local shard can carry global strides that
+    the shard does not have: a later backward ``view`` across the split
+    dims then refuses it (olmo-1b at one head a rank, model = 16)."""
+    import torch
+
+    class _Contiguous(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.contiguous()
+
+    return _Contiguous.apply(x) if x.requires_grad else x
 
 
 def _contiguous(shape) -> tuple:
@@ -486,6 +506,124 @@ def _contiguous(shape) -> tuple:
         stride.append(acc)
         acc *= n
     return tuple(reversed(stride))
+
+
+def whole_heads(x, n: int):
+    """``x`` (..., n * width) with its last dim whole over every mesh dim
+    that splits it into parts not holding whole heads (n % parts != 0):
+    llama4's 40 heads over a model axis of 16. DTensor refuses to split
+    such a dim into (n, width), where GSPMD pads; the heads are gathered
+    instead. Anything else passes as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    last = x.ndim - 1
+    want = [Replicate() if p.is_shard() and p.dim == last
+            and n % x.device_mesh.shape[j] else p
+            for j, p in enumerate(x.placements)]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def whole_heads_grad(x, n: int):
+    """``x`` itself, whose gradient comes back with ``whole_heads``'
+    placements: where the heads are merged, (..., n, width) ->
+    (..., n * width), the backward splits that dim again, which DTensor
+    refuses for a gradient split into parts not holding whole heads (the
+    products after it leave their gradients split that way)."""
+    if not is_dtensor(x):
+        return x
+    import torch
+
+    class _WholeHeadsGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return whole_heads(g, n)
+
+    return _WholeHeadsGrad.apply(x) if x.requires_grad else x
+
+
+def whole_local(x):
+    """The local tensor of a DTensor that every rank holds whole (all
+    placements replicated); anything else as it is."""
+    if is_dtensor(x) and all(p.is_replicate() for p in x.placements):
+        return x.to_local()
+    return x
+
+
+def _local_window(x) -> tuple:
+    """``(offsets, sizes)``: where this rank's shard of the DTensor ``x``
+    sits in the global tensor, dim by dim (DTensor's even chunks, the
+    mesh dims splitting a tensor dim in mesh order)."""
+    off, size = [0] * x.ndim, list(x.shape)
+    for j, pl in enumerate(x.placements):
+        if pl.is_shard():
+            d, n = pl.dim, x.device_mesh.shape[j]
+            chunk = -(-size[d] // n)
+            start = min(x.device_mesh.get_local_rank(j) * chunk, size[d])
+            off[d] += start
+            size[d] = max(min(chunk, size[d] - start), 0)
+    return off, size
+
+
+def masked_fill(x, mask, value):
+    """``x.masked_fill(mask, value)``; for a DTensor ``x`` and a mask
+    that every rank holds whole (a plain tensor, or a replicated
+    DTensor), broadcast against it, rank by rank: each rank fills its
+    shard from its slice of the mask. DTensor's own rule leaves the
+    broadcast mask whole beside a split ``x``."""
+    mask = whole_local(mask)
+    if not is_dtensor(x) or is_dtensor(mask):
+        return x.masked_fill(mask, value)
+    from torch.distributed.tensor import DTensor
+
+    mask = mask.reshape((1,) * (x.ndim - mask.ndim) + tuple(mask.shape))
+    off, size = _local_window(x)
+    for d in range(x.ndim):
+        if mask.shape[d] > 1:
+            mask = mask.narrow(d, off[d], size[d])
+    loc = x.to_local().masked_fill(mask, value)
+    return DTensor.from_local(loc, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def index_write(buf, dim: int, idx, val):
+    """``buf.index_copy_(dim, idx, val)``: rows ``idx`` (distinct) of
+    ``buf`` along ``dim`` written in place. For a DTensor ``buf`` rank by
+    rank: ``val`` is brought to ``buf``'s placements with ``dim`` whole,
+    and each rank writes the rows that fall in its shard through a select
+    over its slice of ``dim`` (DTensor's own in-place ``index_copy_`` on a
+    split ``dim`` relabels ``buf`` as replicated and keeps the shard). A
+    plain ``buf`` takes torch's ``index_copy_``."""
+    if not is_dtensor(buf):
+        return buf.index_copy_(dim, idx, val)
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = buf.device_mesh
+    idx = whole_local(idx)
+    want = [Replicate() if p.is_shard() and p.dim == dim else p
+            for p in buf.placements]
+    if not is_dtensor(val):
+        val = DTensor.from_local(val, mesh, _rep(mesh), run_check=False)
+    if list(val.placements) != want:
+        val = val.redistribute(mesh, want)
+    vloc, loc = val.to_local(), buf.to_local()
+    off, size = _local_window(buf)
+    pos = torch.arange(size[dim], device=loc.device) + off[dim]
+    sel = pos[None, :] == idx.to(pos.dtype)[:, None]     # (len(idx), rows)
+    shape = [1] * loc.ndim
+    shape[dim] = size[dim]
+    src = vloc.index_select(dim, sel.to(torch.int32).argmax(0))
+    loc.copy_(torch.where(sel.any(0).reshape(shape), src, loc))
+    return buf
 
 
 def _rep(mesh) -> list:

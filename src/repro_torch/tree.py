@@ -44,7 +44,8 @@ def flatten(tree: Any) -> tuple[list, Any]:
         return LEAF
 
     spec = walk(tree)
-    return leaves, spec
+    del walk    # the closure refers to itself: free the leaves now, not
+    return leaves, spec     # at the next cyclic collection
 
 
 def unflatten(spec: Any, leaves) -> Any:
@@ -64,6 +65,7 @@ def unflatten(spec: Any, leaves) -> Any:
         return type(node)(fill(x) for x in node)
 
     out = fill(spec)
+    del fill    # as in ``flatten``: no cycle keeps the leaves alive
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out

@@ -23,7 +23,9 @@ Three layers:
    jax 0.9.0 beyond it, ROADMAP Queue 3); ``compressed_psum`` against the
    reference's ``quantize_int8`` / ``dequantize`` replayed for each
    rank's shard; elastic restore from D = 2 to D = 4 and to one device;
-   the launcher with ``--model-parallel 2 --fsdp`` on D = 4.
+   the launcher with ``--model-parallel 2 --fsdp`` on D = 4; and the
+   collectives each rank records (``utils.comms.StepCensus``) over one
+   data = 2 step, against the dry-run's fake world-2 trace of it.
 
 Tolerances (those of tests/test_torch_train.py): loss within 2e-5
 relative, parameters within 1e-5 and first moments within 1e-4 of each
@@ -424,6 +426,9 @@ def inputs(tmp_path_factory):
     cases["launcher"] = dict(kind="launcher", worlds=(4,), argv=LAUNCH_ARGV
                              + ["--model-parallel", "2", "--fsdp"],
                              dir=str(root / "launch"))
+    # data = 2: the step's collectives, recorded by utils.comms
+    cases["census_olmo"] = dict(olmo, worlds=(2,), meshes={2: 1},
+                                census=True)
     return root, {"cases": cases}
 
 
@@ -593,6 +598,32 @@ def test_elastic_restore(spawned, inputs):
     _, _, m = step(tp, ts, {k: torch.as_tensor(v)
                             for k, v in case["batch"].items()})
     assert abs(float(m["loss"]) - want) <= 1e-6 * abs(want)
+
+
+def test_collectives_match_the_fake_trace(spawned, monkeypatch):
+    """Each real gloo rank's collectives over one data = 2 step (recorded
+    by ``utils.comms.StepCensus``) equal the dry-run's fake world-2 trace
+    of that step, kind by kind, in bytes and in counts."""
+    from repro_torch.launch import dryrun as tdry
+    from repro_torch.launch import shapes as tshapes
+
+    shape = f"train_{T}x{B}"
+    monkeypatch.setitem(tshapes.SHAPES, shape, tshapes.ShapeCell(
+        shape, "train", T, B))
+    cfg = get_arch("olmo-1b").reduced()
+    with tdry.fake_world(2):
+        mesh = tmesh.make_host_mesh(model=1, device_type="cpu")
+        plan = tdry._single_pod_plan_axes(mesh, tdry._plan_for(
+            cfg, fsdp=False))
+        fake = tdry._measure(tdry._trace_cell(cfg, shape, mesh, plan,
+                                              device="cpu")[0])
+    ranks = [r["census_olmo"]["collectives"] for r in spawned(2)]
+    assert fake["coll_counts"]["all-reduce"] > 0
+    for got in ranks:
+        assert got["bytes"] == dict(fake["coll_detail"],
+                                    total=fake["coll"])
+        assert got["counts"] == fake["coll_counts"]
+        assert got["flops"] == fake["flops"]
 
 
 def test_launcher_model_parallel_fsdp(spawned, inputs, tmp_path):

@@ -13,7 +13,9 @@ single-device results. This file imports no JAX and nothing of
 ``repro``.
 
 Cases: ``train_<name>``, one step of a reduced architecture under
-``tp_plan`` (the mesh and the plan are the input's ``meshes[world]``);
+``tp_plan`` (the mesh and the plan are the input's ``meshes[world]``;
+with ``census`` set, the step runs under ``utils.comms.StepCensus`` and
+the rank returns its collectives' bytes and counts);
 ``compress``, ``compressed_psum`` over the whole group and over a mesh
 dimension; ``restore``, elastic restore (world 2 saves after one step
 under model = 2 and steps on; world 4 restores that checkpoint under
@@ -23,6 +25,7 @@ same second step); ``launcher``
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import pickle
@@ -94,7 +97,12 @@ def case_train(inp, world, rank, case):
     params, state, _ = _placed_state(cfg, case["params"], mesh, plan, opt)
     step = steps.build_train_step(cfg, mesh, plan, opt,
                                   microbatches=case["mb"])
-    params, state, met = step(params, state, _batch(case["batch"]))
+    census = None
+    if case.get("census"):
+        from repro_torch.utils import comms
+        census = comms.StepCensus()
+    with census if census is not None else contextlib.nullcontext():
+        params, state, met = step(params, state, _batch(case["batch"]))
     p, m, v = (_logical(tree, params), _logical(tree, state.m),
                _logical(tree, state.v))
     out = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
@@ -103,6 +111,10 @@ def case_train(inp, world, rank, case):
                                  for x in tree.leaves(params)})}
     if rank == 0:
         out.update(params=p, m=m)
+    if census is not None:
+        out["collectives"] = {"bytes": comms.collective_bytes(
+            census.records), "counts": comms.collective_counts(
+            census.records), "flops": census.flops}
     return out
 
 
