@@ -238,9 +238,30 @@ It runs every phase, in order, each printing one JSON line:
                  step from the placements and peak memory per rank;
                  the data = 2 x model = 2 plan's ranks record step 2's
                  collectives (utils.comms.StepCensus) for the dryrun
-                 phase's (c);
- 21. train_families -- falcon-mamba-7b cut to 16 layers, zamba2-1.2b,
-                 whisper-medium and qwen2-vl-2b whole, bf16, trained 2
+                 phase's (c), and the FSDP plan's ranks theirs, whose
+                 all-gathers must be those par_fsdp_gathers reckons (a
+                 unit of the stack gathered in its block's forward and
+                 again in its recompute), with no rank's peak above
+                 PAR_FSDP_PEAK; then fsdp_wide, where the machine has
+                 four cards (else a line says so): WIDE_PLANS at their
+                 published widths, cut in depth only (llama3-405b at 4
+                 layers, arctic-480b's one MoE layer), data = 2 x model
+                 = 2 with FSDP on NCCL, a card a rank, bf16, 2 steps of
+                 8 x 1024 tokens, each plan's parameters drawn and
+                 placed a leaf at a time; it holds (a) every rank to the
+                 same loss bits and arrays, (b) step 1's loss to a
+                 no_grad forward of the same parameters on one card
+                 (WIDE_TOL; a planted fault, the unembedding's gather
+                 dropped, must read above it), (c) the loss falling,
+                 (d) each rank's allocator peak under the card's 80 GB
+                 and at most WIDE_MEM above its plan's fake world-4
+                 trace,
+                 (e) no kernel launched, and W1's all-gathers to the
+                 reckoning; and prints seconds a step, collective
+                 seconds, bytes a step and the share of the bf16 peak;
+ 21. train_families -- falcon-mamba-7b cut to 16 layers, zamba2-1.2b to
+                 20 (3 of its 6 units and the tail), whisper-medium and
+                 qwen2-vl-2b whole, bf16, trained 2
                  steps on one fixed batch of 8 sequences; checks (a) one
                  f32 step at LM_CUT's depth on the card against the
                  CPU, with TF32 as the control, (b) bf16 against f32 at
@@ -256,8 +277,8 @@ It runs every phase, in order, each printing one JSON line:
                  the multi-pod mesh): each record's compute, memory and
                  collective seconds, the dominant one, the roofline
                  fraction, HBM GB a rank against the card's 80 GB and
-                 the trace seconds (every cell but the MoE's must be ok;
-                 its error or excess is printed, item 6a's finding),
+                 the trace seconds (every cell must be ok, and the
+                 FSDP cell, DRY_FSDP_FITS, within the card's 80 GB),
                  then the roofline CLI over them; (b) the parallel
                  phase's D = 1 step (olmo-1b, 2 layers, 8 x 1024 tokens,
                  bf16) run for real on a NCCL group of one under
@@ -274,7 +295,12 @@ It runs every phase, in order, each printing one JSON line:
                  repro_torch.analysis src/repro_torch clean, and
                  examples/quickstart_torch.py and sensor_placement_torch.py
                  on the card (the brackets hold the printed truth, every
-                 judge certified, no uncertified decision);
+                 judge certified, no uncertified decision); (e) the fake
+                 world-4 traces of the parallel phase's FSDP plan and of
+                 fsdp_wide's W1: their all-gathers those par_fsdp_gathers
+                 reckons, in count and bytes; the traced peaks a rank of
+                 W1 (and of W2 where fsdp_wide ran), under the card's
+                 80 GB;
  23. profile  -- each path call again (and the DPP chain and the greedy
                  MAP call on 'pallas', with K1's share, the serve-dense
                  flushes on 'pallas' and 'fused', the generate phase's
@@ -299,6 +325,12 @@ truth; every lane of a solve, on either backend, must certify before the
 cap. Launch counters are zeroed just before each path phase and read
 just after. Any failure raises and exits non-zero; there is no fallback
 to the CPU. The last line is the device contract line.
+
+    python3 chip_smoke.py --phases device,parallel
+
+runs the named phases alone, in the order above, and ends with their
+seconds instead of the kernels and contract lines (on four cards, the
+parallel phase with its fsdp_wide part).
 """
 from __future__ import annotations
 
@@ -578,29 +610,60 @@ PAR_GLOO_REFUSED = {"data=2 x model=2 fsdp mb2":
                     "all-gather of FSDP's parameters: gloo segfaults in "
                     "all-gathers of CUDA tensors"}
 PAR_NCCL = "data=2 x model=2 fsdp mb2"
+# PAR_NCCL's peak a rank in its bf16 steps on four H100s while FSDP
+# gathered the whole model at the start of the loss (PERF.md §6): gathering
+# a unit at a time must not exceed it
+PAR_FSDP_PEAK = 5_384_063_488
 PAR_TOL = {"loss": 2e-5, "params": 1e-5, "m": 1e-4, "restore": 1e-6,
            "compress": 1e-6}
 PAR_COMPRESS = 1 << 20
 PAR_TIMEOUT_S = 600.0
+# The parallel phase's fsdp_wide part: training at published widths, cut
+# in depth only, over WIDE["world"] NCCL ranks, a card each (data = 2 x
+# model = 2, FSDP on data; it runs where the machine has that many
+# cards), bf16, warmup-cosine AdamW (lr WIDE["lr"], eps at its default),
+# one fixed batch of WIDE["batch"] x WIDE["seq"] tokens from the seed,
+# WIDE["steps"] steps. W1, dense: llama3-405b at 4 of 126 layers (16.95e9
+# parameters); W2, MoE: arctic-480b at 1 of 35 (one MoE layer of 128
+# experts, top-2, with its dense residual; 14.07e9), its experts on the
+# model axis through tp_plan's "expert" rule. A plan whose traced peak a
+# rank (the fake world-4 trace) is over WIDE_LEAVE_OUT is left out, its
+# figure printed. WIDE_TOL: (b) step 1's loss against a no_grad forward
+# of the same parameters on one card, relative: bf16 on both, the sums
+# in another order, and a near-tie in arctic's router may flip; the
+# planted fault (every rank's gather of the unembedding table keeping
+# only its own shard) must read above it. WIDE_MEM: (d) each rank's
+# allocator peak may exceed its plan's traced peak by this share at most:
+# the trace is the figure a run is planned by, so it must not
+# under-reckon (the allocator read 0.12% above W1's trace and 7.2% below
+# W2's on four H100s; PERF.md).
+WIDE_PLANS = {"W1": ("llama3-405b", 4), "W2": ("arctic-480b", 1)}
+WIDE = dict(world=4, model=2, batch=8, seq=1024, steps=2, lr=3e-4)
+WIDE_TOL = 1e-4
+WIDE_MEM = 0.05
+WIDE_LEAVE_OUT = 76e9
+WIDE_TIMEOUT_S = 900.0
 # The train_families phase: each model at its published widths (falcon-
-# mamba cut to 16 of 64 layers: all 64 with AdamW's f32 moments need 84 GB),
-# bf16, FAM["steps"] steps of warmup-cosine AdamW (lr FAM["lr"]) on one
-# fixed batch of FAM["batch"] sequences (2 steps, cut from 4 for the
-# script's time: zamba2 takes 14 s a step; PERF.md): FAM["seq"] tokens (falcon-mamba,
+# mamba cut to 16 of 64 layers: all 64 with AdamW's f32 moments need 84 GB;
+# zamba2 to 3 of its 6 units and the tail, 20 of 38 layers, for the
+# script's time: the whole stack took 13-16 s a step), bf16, FAM["steps"]
+# steps of warmup-cosine AdamW (lr FAM["lr"]) on one fixed batch of
+# FAM["batch"] sequences (2 steps, cut from 4 for the script's time;
+# PERF.md): FAM["seq"] tokens (falcon-mamba,
 # zamba2), FAM["frames"] stub frames and FAM["text"] tokens (whisper's
 # audio and text contexts), or a FAM["grid"]-square image and
 # FAM["vlm_text"] tokens (qwen2-vl). Check (a) runs one f32 step at
 # LM_CUT's depth on FAM_A's batch on the card and on the CPU (the CPU's
 # on a thread of its own, beside the card's work).
-TRAIN_FAMILIES = (("falcon-mamba-7b", 16), ("zamba2-1.2b", 38),
+TRAIN_FAMILIES = (("falcon-mamba-7b", 16), ("zamba2-1.2b", 20),
                   ("whisper-medium", 24), ("qwen2-vl-2b", 28))
 FAM = dict(batch=8, seq=1024, steps=2, lr=3e-4, frames=1500, text=448,
            grid=16, vlm_text=768)
 FAM_A = dict(batch=2, seq=64, frames=256, grid=4)
 # The dryrun phase: DRY_CELLS (arch, shape, mesh), each a `python -m
 # repro_torch.launch.dryrun` process of its own, side by side; every one
-# but DRY_MOE must come back ok (its error or excess is item 6a's
-# finding, printed). PAR_CENSUS is the parallel phase's plan whose gloo
+# must come back ok, within the card's CARD_HBM a rank where it trains
+# with FSDP (DRY_FSDP_FITS). PAR_CENSUS is the parallel phase's plan whose gloo
 # ranks record their collectives in step 2 for (c); (b) times DRY_STEPS
 # steps of the D = 1 plan after the counted one. CARD_HBM: the card's
 # 80 GB, beside each cell's bytes a rank.
@@ -608,7 +671,7 @@ DRY_CELLS = (("olmo-1b", "train_4k", "single"),
              ("llama4-maverick-400b-a17b", "train_4k", "single"),
              ("falcon-mamba-7b", "long_500k", "single"),
              ("olmo-1b", "train_4k", "multi"))
-DRY_MOE = ("llama4-maverick-400b-a17b", "train_4k", "single")
+DRY_FSDP_FITS = ("llama4-maverick-400b-a17b", "train_4k", "single")
 DRY_EXAMPLES = ("quickstart_torch.py", "sensor_placement_torch.py")
 DRY_STEPS = 3
 DRY_TIMEOUT_S = 300.0
@@ -1312,8 +1375,9 @@ def par_errors(params, state, ref) -> dict:
 
 def par_digest(params, state) -> list:
     """For each leaf, the coordinates of this rank's shard (None where the
-    leaf is replicated) and a digest of its bits (two int64 sums): ranks
-    holding the same shard must hold the same bits."""
+    leaf is replicated) and a digest of its bits (two int64 sums, taken
+    over pieces of 2^26 words: integer sums, the same whatever the
+    pieces): ranks holding the same shard must hold the same bits."""
     from repro_torch import tree
     out = []
     for x in tree.leaves((params, state.m, state.v)):
@@ -1321,9 +1385,14 @@ def par_digest(params, state) -> list:
         key = tuple(c if p.is_shard() else None for c, p in zip(
             x.device_mesh.get_coordinate(), x.placements)) \
             if hasattr(x, "device_mesh") else ()
-        b = loc.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-        w = torch.arange(b.numel(), device=b.device) % 1009 + 1
-        out.append((key, int(b.sum()), int((b * w).sum())))
+        words = loc.contiguous().view(torch.int32).reshape(-1)
+        s1 = s2 = 0
+        for i in range(0, words.numel(), 1 << 26):
+            b = words[i:i + (1 << 26)].to(torch.int64)
+            w = (torch.arange(b.numel(), device=b.device) + i) % 1009 + 1
+            s1 += int(b.sum())
+            s2 += int((b * w).sum())
+        out.append((key, s1, s2))
     return out
 
 
@@ -1337,14 +1406,65 @@ def par_same_arrays(digests) -> bool:
     return True
 
 
-def par_bytes(dparams, mesh, cfg, tokens_local: int) -> dict:
+def par_fsdp_gathers(cfg, sizes: dict, plan, microbatches: int = 1) -> dict:
+    """FSDP's all-gathers of one step on a rank, reckoned from the
+    placements (``sizes``: {mesh axis: size}) as the model issues them
+    (``sharding.api.fsdp_gather``): a stack leaf's slices twice a unit
+    with ``remat="block"`` (its block's forward and its recompute), once
+    without; a leaf split on its stack dim once, gathered whole before
+    the loop; every other leaf (the top-level ones, a tied table once for
+    its two uses, zamba2's shared block) once at its use; all of it once
+    a microbatch. ``count`` and ``census_bytes`` (the gathered buffers, as
+    ``utils.comms`` counts an all-gather) are what a rank's
+    ``StepCensus`` records of them; ``wire`` is the ring's (D - 1) / D of
+    the buffers, and ``reduce_scatter`` the wire bytes of their
+    gradients', one reduce-scatter a unit slice a microbatch."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    skeleton, axes = M._build(cfg, M._meta)
+    specs = shapi.param_specs(plan, sizes, skeleton, axes)
+    d = sizes.get(plan.fsdp_axis, 1)
+    stacks = ("blocks", "units", "tail", "enc_blocks")
+    per_unit = 2 if cfg.remat == "block" else 1
+    out = {"count": 0, "census_bytes": 0, "wire": 0.0,
+           "reduce_scatter": 0.0}
+
+    def walk(p, sp, top):
+        if isinstance(p, dict):
+            for k in sorted(p):
+                walk(p[k], sp[k], top or k)
+            return
+        names = [n for e in sp for n in shapi._names(e)]
+        if d <= 1 or plan.fsdp_axis not in names:
+            return
+        split = 1
+        for n in names:
+            split *= sizes[n]
+        loc = p.numel() * p.element_size() // split
+        if top in stacks and sp[0] != plan.fsdp_axis:
+            count, passes = per_unit * p.shape[0], per_unit
+        else:
+            count, passes = 1, 1
+        out["count"] += count * microbatches
+        out["census_bytes"] += passes * microbatches * loc * d
+        out["wire"] += passes * microbatches * loc * (d - 1)
+        out["reduce_scatter"] += microbatches * loc * (d - 1)
+
+    walk(skeleton, specs, None)
+    return out
+
+
+def par_bytes(dparams, mesh, cfg, tokens_local: int, plan,
+              microbatches: int = 1) -> dict:
     """The bytes a step moves on this rank, reckoned from the placements:
-    an FSDP leaf's all-gather (forward) and reduce-scatter (its gradient),
-    a data-replicated leaf's gradient all-reduce (ring: 2 (D - 1) / D of
-    it), and, with a model axis, the tensor-parallel all-reduces of the
-    (B_local, T, d) activations (two a block forward, two backward, two
-    in the recomputed forward)."""
+    FSDP's all-gathers (``par_fsdp_gathers``: forward and recompute) and
+    the reduce-scatters of their gradients, a data-replicated leaf's
+    gradient all-reduce (ring: 2 (D - 1) / D of it), and, with a model
+    axis, the tensor-parallel all-reduces of the (B_local, T, d)
+    activations (two a block forward, two backward, two in the
+    recomputed forward)."""
     from repro_torch import tree
+    from repro_torch.sharding import api as shapi
     from torch.distributed.tensor import Shard
     names = mesh.mesh_dim_names
     size = dict(zip(names, mesh.shape))
@@ -1353,16 +1473,21 @@ def par_bytes(dparams, mesh, cfg, tokens_local: int) -> dict:
     for x in tree.leaves(dparams):
         pl = dict(zip(names, x.placements))
         loc = x.to_local().numel() * x.element_size()
-        if isinstance(pl.get("data"), Shard):
-            out["fsdp_gather"] += (d - 1) * loc
-            out["grad_reduce"] += (d - 1) * loc
-        elif d > 1:
+        if d > 1 and not isinstance(pl.get("data"), Shard):
             out["grad_reduce"] += 2 * (d - 1) / d * loc
+    if plan.fsdp:
+        g = par_fsdp_gathers(cfg, shapi.mesh_sizes(mesh), plan,
+                             microbatches)
+        out["fsdp_gather"] = g["wire"]
+        out["grad_reduce"] += g["reduce_scatter"]
+        out["fsdp_gathers"] = g["count"]
+        out["fsdp_gather_census_bytes"] = g["census_bytes"]
     if m > 1:
         act = tokens_local * cfg.d_model * torch.finfo(
             getattr(torch, cfg.dtype)).bits // 8
         out["tp_activations"] = cfg.n_layers * 6 * 2 * (m - 1) / m * act
-    out["total"] = sum(out.values())
+    out["total"] = sum(out[k] for k in ("fsdp_gather", "grad_reduce",
+                                        "tp_activations"))
     return out
 
 
@@ -1370,18 +1495,13 @@ def par_fault_vg(cfg, mesh, plan, params, batch):
     """The planted fault: ``launch.steps._dist_value_and_grad`` with the
     data reduce skipped: each rank keeps the gradient of its own rows as
     if it were the whole batch's."""
-    from repro_torch import tree
-    from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.sharding import api as shapi
+    from repro_torch import tree
     from torch.distributed.tensor import DTensor
 
-    def loss(c, p, b):
-        return M.loss_fn(c, tree.map(lambda x: steps._for_compute(plan, x),
-                                     p), b)
-
     with shapi.activation_context(mesh, plan):
-        (v, met), g = M.value_and_grad(cfg, params, batch, loss=loss)
+        (v, met), g = M.value_and_grad(cfg, params, batch)
         g = tree.map(lambda gg, pp: DTensor.from_local(
             gg.to_local(), mesh, pp.placements, run_check=False), g, params)
     return (par_logical(v), {k: par_logical(x) for k, x in met.items()}), g
@@ -1400,10 +1520,8 @@ def par_run(cfg, mesh, plan, mb, ref, dev, *, save=None, fault=False,
     from repro_torch.models import model as M
     from repro_torch.sharding import api as shapi
     opt = par_opt()
-    params, axes = M.init_model(SEED, cfg, device=dev)
-    dp = shapi.distribute(params, mesh, shapi.param_shardings(
-        plan, mesh, params, axes))
-    del params
+    dp, _ = M.init_model(SEED, cfg, device=dev,
+                         place=shapi.leaf_placer(plan, mesh))
     state = opt.init(dp)
     real = steps._dist_value_and_grad
     if fault:
@@ -1436,7 +1554,8 @@ def par_run(cfg, mesh, plan, mb, ref, dev, *, save=None, fault=False,
             "bytes": comms.collective_bytes(counted.records),
             "counts": comms.collective_counts(counted.records),
             "reckoned": par_bytes(dp, mesh, cfg,
-                                  PAR["batch"] * PAR["seq"] // d)}
+                                  PAR["batch"] * PAR["seq"] // d, plan,
+                                  mb)}
     if not fault:
         rec["digest"] = par_digest(dp, state)
         rec["sharded_leaves"] = sum(
@@ -1456,10 +1575,8 @@ def par_times(cfg, mesh, plan, mb, dev) -> dict:
     from repro_torch.models import model as M
     from repro_torch.sharding import api as shapi
     opt = par_opt(checks=False)
-    params, axes = M.init_model(SEED, cfg, device=dev)
-    dp = shapi.distribute(params, mesh, shapi.param_shardings(
-        plan, mesh, params, axes))
-    del params
+    dp, _ = M.init_model(SEED, cfg, device=dev,
+                         place=shapi.leaf_placer(plan, mesh))
     state = opt.init(dp)
     step = steps.build_train_step(cfg, mesh, plan, opt, microbatches=mb)
     batch = par_batch(cfg, dev)
@@ -1490,7 +1607,8 @@ def par_times(cfg, mesh, plan, mb, dev) -> dict:
             "collective_host_s": host, "nccl_device_s": nccl,
             "loss_bf16": float(met["loss"]),
             "max_memory_allocated": par_peak(dev),
-            "bytes_per_step": par_bytes(dp, mesh, cfg, tokens_local)}
+            "bytes_per_step": par_bytes(dp, mesh, cfg, tokens_local,
+                                        plan, mb)}
 
 
 def par_compress(world: int, rank: int, dev, group=None) -> dict:
@@ -1586,7 +1704,7 @@ def par_plans(world: int, names, backend: str, dev, job) -> dict:
         t0 = time.perf_counter()
         rec = par_run(cfg32, mesh, plan, mb, ref, dev,
                       save=job["ckpt"] if name == PAR_SAVE else None,
-                      census=name == PAR_CENSUS)
+                      census=name in (PAR_CENSUS, PAR_NCCL))
         if name == PAR_FAULT:
             rec["fault"] = par_run(cfg32, mesh, plan, mb, ref, dev,
                                    fault=True)
@@ -1637,6 +1755,271 @@ def parallel_rank(rank: int, world: int, backend: str, names,
         finally:
             dist.destroy_process_group()
         with open(job_dir / f"{backend}{world}_rank{rank}.pkl", "wb") as f:
+            pickle.dump(recs, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+# -- the parallel phase's fsdp_wide part ------------------------------------
+
+
+def wide_config(name: str):
+    """WIDE_PLANS[name]: the architecture at its published widths, bf16,
+    cut to its plan's depth."""
+    from repro_torch.configs import get_arch
+    arch, layers = WIDE_PLANS[name]
+    return dataclasses.replace(get_arch(arch), n_layers=layers)
+
+
+def wide_cell():
+    from repro_torch.launch import shapes
+    name = f"train_{WIDE['seq']}x{WIDE['batch']}"
+    return shapes.ShapeCell(name, "train", WIDE["seq"], WIDE["batch"])
+
+
+def wide_batch(cfg, dev) -> dict:
+    """WIDE's fixed batch of tokens and labels, from the seed."""
+    toks = np.random.default_rng(SEED + 37).integers(
+        1, cfg.vocab - 1, (WIDE["batch"], WIDE["seq"] + 1)).astype(np.int32)
+    t = torch.as_tensor(toks, device=dev)
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+
+
+def wide_trace_start(out: Path, names, device_type: str) -> dict:
+    """The fake world-4 traces of WIDE_PLANS ``names`` (data = 2 x model =
+    2, FSDP; dryrun.run_cell in a spawned process each, side by side):
+    ``{name: process}``."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    model = WIDE["model"]
+    mesh = f"host{WIDE['world'] // model}x{model}"
+    procs = {}
+    for name in names:
+        cfg = wide_config(name)
+        d = out / f"wide_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        job = dict(arch=cfg.name, shape_name=wide_cell().name,
+                   mesh_kind=mesh, cfg=cfg, fsdp=True, cell=wide_cell(),
+                   out_dir=d, skip_delta=True, device=device_type)
+        procs[name] = ctx.Process(target=dry_cell, args=(
+            job, str(out / f"wide_{name}.log")))
+        procs[name].start()
+    return procs
+
+
+def wide_trace_read(out: Path, name: str) -> dict:
+    """One plan's fake trace: its record's memory (arguments, temporaries
+    and their sum, the traced peak a rank) and collectives."""
+    cfg = wide_config(name)
+    model = WIDE["model"]
+    rec = dry_record(out / f"wide_{name}", cfg.name, wide_cell().name,
+                     f"host{WIDE['world'] // model}x{model}")
+    if rec["status"] != "ok":
+        log = out / f"wide_{name}.log"
+        tail = log.read_text()[-3000:] if log.exists() else ""
+        raise AssertionError(f"fsdp_wide {name} trace: {rec.get('error')}"
+                             f"\n{tail}")
+    mem = rec["memory"]
+    return {"args": mem["argument_size_in_bytes"],
+            "temp": mem["temp_size_in_bytes"],
+            "peak": mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"],
+            "counts": rec["cost_raw"]["coll_counts"],
+            "bytes": dict(rec["cost_raw"]["coll_detail"],
+                          total=rec["cost_raw"]["coll"]),
+            "trace_s": rec["trace_s"], "device": rec["device"]}
+
+
+def wide_forward(cfg, dev) -> dict:
+    """(b)'s reference: the loss of a no_grad forward of the seed's
+    parameters (init_model, whole, on this card) on WIDE's batch."""
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    params, _ = M.init_model(SEED, cfg, device=dev)
+    with torch.no_grad():
+        loss, _ = M.loss_fn(cfg, params, wide_batch(cfg, dev))
+    out = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else 0}
+    del params, loss
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_fault_loss(cfg, mesh, plan, params, batch) -> float:
+    """(b)'s planted fault: the step 1 forward (no_grad) with every
+    rank's all-gather of the unembedding table keeping only its own shard
+    (the rest of the gathered buffer zero): a gather whose result is
+    dropped. The collective still runs on every rank. The table is the
+    forward's second gather of a (vocab, d_model) leaf (the embedding's
+    is the first), its only one when the embeddings are tied."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+    from torch.distributed.tensor import DTensor
+    real = shapi._for_compute
+    which = 1 if cfg.tie_embeddings else 2
+    seen = [0]
+
+    def dropped(plan_, x):
+        out = real(plan_, x)
+        if out is x or tuple(x.shape) != (cfg.vocab, cfg.d_model):
+            return out      # no gather, or not a table
+        seen[0] += 1
+        if seen[0] != which:
+            return out
+        loc = out.to_local().clone()
+        off, size = shapi._local_window(x)
+        for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+            if name == plan.fsdp_axis and p.is_shard():
+                keep = torch.zeros(loc.shape[p.dim], dtype=loc.dtype,
+                                   device=loc.device)
+                keep[off[p.dim]:off[p.dim] + size[p.dim]] = 1
+                shape = [1] * loc.ndim
+                shape[p.dim] = loc.shape[p.dim]
+                loc = loc * keep.reshape(shape)
+        return DTensor.from_local(loc, out.device_mesh, out.placements,
+                                  run_check=False, shape=out.shape,
+                                  stride=out.stride())
+
+    shapi._for_compute = dropped
+    try:
+        with torch.no_grad(), shapi.activation_context(mesh, plan):
+            loss, _ = M.loss_fn(cfg, params,
+                                steps._place_batch(mesh, plan, batch))
+        assert seen[0] >= which, f"the table's gather was not met: {seen}"
+        return float(par_logical(loss))
+    finally:
+        shapi._for_compute = real
+
+
+def wide_census(dev):
+    """A ``utils.comms.StepCensus`` that also reads, at each new peak of
+    its live storages, the card's allocator (``memory_allocated``) and
+    the eight largest live storages: the two counts side by side."""
+    from repro_torch.utils import comms
+
+    class PeakCensus(comms.StepCensus):
+        allocated_at_peak = 0
+        largest_at_peak: list = []
+
+        def _track(self, out):
+            before = self.peak_bytes
+            super()._track(out)
+            if self.peak_bytes > before and dev.type == "cuda":
+                self.allocated_at_peak = torch.cuda.memory_allocated(dev)
+                if self.peak_bytes > before + (1 << 27):
+                    self.largest_at_peak = sorted(self._live.values())[-8:]
+
+    return PeakCensus()
+
+
+def wide_plan(name: str, dev) -> dict:
+    """One WIDE_PLANS plan on this rank: the parameters drawn and placed
+    a leaf at a time, AdamW's state, WIDE["steps"] bf16 steps (step 1
+    under utils.comms.StepCensus, step 2 under torch.profiler), each
+    step's loss and allocator peak, the logical arrays' digest, and the
+    planted fault's forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import make_host_mesh, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.sharding import api as shapi
+    from repro_torch.utils import comms
+    cfg = wide_config(name)
+    mesh = make_host_mesh(model=WIDE["model"], device_type=dev.type)
+    plan = shapi.tp_plan(data_axes=("data",), model_axis="model", fsdp=True)
+    t0 = time.perf_counter()
+    params, _ = M.init_model(SEED, cfg, device=dev,
+                             place=shapi.leaf_placer(plan, mesh))
+    opt = AdamW(lr=warmup_cosine(WIDE["lr"], 1, WIDE["steps"]))
+    state = opt.init(params)
+    batch = wide_batch(cfg, dev)
+    par_sync(dev)
+    init_s = time.perf_counter() - t0
+    step = steps.build_train_step(cfg, mesh, plan, opt)
+    census = wide_census(dev)
+    args = census.exclude((params, state, batch))
+    rec = {"init_s": init_s, "census_args": args, "losses": [],
+           "step_s": [], "before": [], "peak": []}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    prof = None
+    for s in range(WIDE["steps"]):
+        par_sync(dev)
+        rec["before"].append(torch.cuda.memory_allocated()
+                             if dev.type == "cuda" else 0)
+        par_peak(dev, reset=True)
+        t0 = time.perf_counter()
+        if s == 0:
+            with census:
+                params, state, met = step(params, state, batch)
+        else:
+            with profile(activities=acts) as prof:
+                params, state, met = step(params, state, batch)
+                par_sync(dev)
+        par_sync(dev)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["peak"].append(par_peak(dev))
+        rec["losses"].append(float(met["loss"]))
+    keys = ("c10d", "gloo", "nccl", "wait_tensor", "all_reduce",
+            "all_gather", "reduce_scatter", "all_to_all")
+    ka = prof.key_averages()
+    rec["collective_host_s"] = sum(
+        e.self_cpu_time_total for e in ka
+        if any(k in e.key.lower() for k in keys)) / 1e6
+    rec["nccl_device_s"] = sum(
+        e.device_time_total for e in ka if "nccl" in e.key.lower()
+        and e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    rec["loss_hex"] = [x.hex() for x in rec["losses"]]
+    rec["census"] = {"bytes": comms.collective_bytes(census.records),
+                     "counts": comms.collective_counts(census.records),
+                     "temp": census.peak_bytes,
+                     "allocated_at_peak": census.allocated_at_peak,
+                     "largest_at_peak": census.largest_at_peak}
+    d = WIDE["world"] // WIDE["model"]
+    rec["reckoned"] = par_bytes(params, mesh, cfg, WIDE["batch"]
+                                * WIDE["seq"] // d, plan)
+    rec["digest"] = par_digest(params, state)
+    del state
+    rec["fault_loss"] = wide_fault_loss(cfg, mesh, plan, params, batch)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def wide_rank(rank: int, world: int, names, job_dir: str) -> None:
+    """One NCCL rank of the fsdp_wide part, a card each, spawned by the
+    parallel phase: ``wide_plan`` for each plan of ``names``, pickled to
+    ``job_dir``."""
+    import faulthandler
+    import os
+    import pickle
+    import traceback
+    faulthandler.enable()
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        from repro_torch.launch import init_lane_group
+        torch.cuda.set_device(rank)
+        job_dir = Path(job_dir)
+        init_lane_group("nccl", rank, world, store=dist.FileStore(
+            str(job_dir / "store_wide"), world), timeout_s=WIDE_TIMEOUT_S)
+        reset_launches()
+        try:
+            dev = torch.device("cuda", rank)
+            recs = {name: wide_plan(name, dev) for name in names}
+        finally:
+            dist.destroy_process_group()
+        recs["launches"] = dict(LAUNCHES)
+        with open(job_dir / f"wide_rank{rank}.pkl", "wb") as f:
             pickle.dump(recs, f)
     except BaseException:
         traceback.print_exc()
@@ -1992,6 +2375,7 @@ class Smoke:
         self.gen = None       # the generate phase's model, prompts, caches
         self.par_cfg = None   # the parallel phase's config (None: PAR_ARCH)
         self.par_census = None  # PAR_CENSUS's ranks' collectives, step 2
+        self.wide_traced = None  # fsdp_wide's fake traces, where it ran
 
     # -- problems --------------------------------------------------------
 
@@ -4997,7 +5381,8 @@ class Smoke:
         1, restored under data x model with FSDP and under D = 1: the
         same bits, step 2's loss within PAR_TOL["restore"]);
         compressed_psum at D = 2 and 4 on CUDA tensors against its
-        formula; no port kernel launched."""
+        formula; the FSDP plan's gathers (fsdp_checks); no port kernel
+        launched. Then the fsdp_wide part (par_wide)."""
         import multiprocessing as mp
         import pickle
         import shutil
@@ -5039,6 +5424,29 @@ class Smoke:
                 PAR_TOL["restore"] * abs(want["loss2"]), \
                 f"parallel restore {where}: {rs} vs {want['loss2']}"
 
+        def fsdp_checks(name, recs, line):
+            """FSDP's gathers a unit at a time: every rank's census of
+            step 2 records the all-gathers par_fsdp_gathers reckons (count
+            and bytes), and no rank's peak rises above PAR_FSDP_PEAK."""
+            ag = [{"count": r["collectives"]["counts"].get("all-gather", 0),
+                   "bytes": r["collectives"]["bytes"].get("all-gather",
+                                                          0.0)}
+                  for r in recs]
+            want = {"count": recs[0]["collectives"]["reckoned"][
+                "fsdp_gathers"], "bytes": recs[0]["collectives"][
+                "reckoned"]["fsdp_gather_census_bytes"]}
+            peaks = [t["max_memory_allocated"] for t in line["ranks"]]
+            emit({"phase": "parallel", "plan": name, "fsdp_gathers": ag,
+                  "reckoned": want, "peak_gb": [x / 1e9 for x in peaks],
+                  "peak_limit_gb": PAR_FSDP_PEAK / 1e9,
+                  "nvidia_smi": nvidia_smi()})
+            for a in ag:
+                assert a["count"] == want["count"] and \
+                    a["bytes"] == want["bytes"], \
+                    f"parallel {name}: all-gathers {a} vs reckoned {want}"
+            assert max(peaks) <= PAR_FSDP_PEAK, \
+                f"parallel {name}: peak {max(peaks)} over {PAR_FSDP_PEAK}"
+
         def report(world, bk, by_rank):
             """Emit and check one world's plans as soon as they return."""
             for name in by_rank[0]:
@@ -5078,6 +5486,8 @@ class Smoke:
                     want["loss2"] = rec["losses"][1]
                 if name == PAR_CENSUS:
                     self.par_census = [r["collectives"] for r in recs]
+                if name == PAR_NCCL:
+                    fsdp_checks(name, recs, line)
                 assert line["same_loss_bits"] and line["same_arrays"], \
                     f"parallel {name}: the ranks differ"
                 assert rec["loss_err"] <= PAR_TOL["loss"], \
@@ -5152,6 +5562,9 @@ class Smoke:
         seconds[f"{backend} D=1 restore"] = time.perf_counter() - t0
         for k, v in LAUNCHES.items():
             launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        self.par_wide(cards, job_dir)
+        seconds["fsdp_wide"] = time.perf_counter() - t0
         shutil.rmtree(job_dir, ignore_errors=True)
         emit({"phase": "parallel", "restore_d1": restore1,
               "uninterrupted_loss2": want["loss2"], "summary": summary,
@@ -5160,6 +5573,154 @@ class Smoke:
         check_restore(restore1, "D=1")
         assert not any(launches.values()), \
             f"the parallel training path launched port kernels: {launches}"
+
+    def par_wide(self, cards: int, job_dir: Path) -> None:
+        """The fsdp_wide part: WIDE_PLANS on WIDE["world"] NCCL ranks, a
+        card each, where the machine has the cards (else one line a plan
+        says so). First each plan's fake world-4 trace (its peak a rank
+        decides whether it runs), then (b)'s one-card forwards in this
+        process, then the ranks. Checks: (a) every rank the same loss bits
+        and logical arrays; (b) step 1's loss within WIDE_TOL of the
+        one-card forward, the planted fault above it; (c) step 2's loss
+        below step 1's; (d) every rank's allocator peak under the card's
+        80 GB and at most WIDE_MEM above the traced peak; (e) no port kernel
+        launched; and W1's all-gathers, counted by each rank's census,
+        those par_fsdp_gathers reckons."""
+        import multiprocessing as mp
+        import pickle
+
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        world, names = WIDE["world"], list(WIDE_PLANS)
+        if self.dev.type != "cuda" or cards < world:
+            for name in names:
+                cfg = wide_config(name)
+                emit({"phase": "parallel", "plan": f"fsdp_wide {name}",
+                      "arch": cfg.name, "layers": cfg.n_layers,
+                      "runs": f"on NCCL with {world} cards; this machine "
+                      f"has {cards}"})
+            return
+        t_part = time.perf_counter()
+        procs = wide_trace_start(job_dir, names, self.dev.type)
+        for proc in procs.values():
+            dry_wait(proc, DRY_TIMEOUT_S)
+        traced = {name: wide_trace_read(job_dir, name) for name in names}
+        self.wide_traced = traced
+        run = [n for n in names if traced[n]["peak"] <= WIDE_LEAVE_OUT]
+        for name in names:
+            if name not in run:
+                emit({"phase": "parallel", "plan": f"fsdp_wide {name}",
+                      "left_out": "its traced peak a rank is over "
+                      f"{WIDE_LEAVE_OUT / 1e9} GB",
+                      "traced_peak_gb": traced[name]["peak"] / 1e9})
+        reset_launches()
+        torch.cuda.empty_cache()
+        forward = {n: wide_forward(wide_config(n), self.dev) for n in run}
+        launches = dict(LAUNCHES)
+        held = torch.cuda.memory_allocated()
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=wide_rank, args=(r, world, run,
+                                                     str(job_dir)))
+                 for r in range(world)]
+        for q in procs:
+            q.start()
+        deadline = time.monotonic() + WIDE_TIMEOUT_S
+        for q in procs:
+            q.join(max(deadline - time.monotonic(), 0.0))
+        for q in procs:
+            if q.is_alive():
+                q.kill()
+                q.join()
+        codes = [q.exitcode for q in procs]
+        assert codes == [0] * world, f"fsdp_wide: rank exit codes {codes}"
+        by_rank = []
+        for r in range(world):
+            with open(job_dir / f"wide_rank{r}.pkl", "rb") as f:
+                by_rank.append(pickle.load(f))
+        ranks_s = time.perf_counter() - t0
+        for r in by_rank:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        smi = nvidia_smi()
+        tokens = WIDE["batch"] * WIDE["seq"]
+        for name in run:
+            cfg = wide_config(name)
+            recs = [r[name] for r in by_rank]
+            rec, tr, fw = recs[0], traced[name], forward[name]["loss"]
+            step_s = max(r["step_s"][-1] for r in recs)
+            flops = 6.0 * cfg.active_param_count() * tokens
+            line = {
+                "phase": "parallel", "plan": f"fsdp_wide {name}",
+                "arch": cfg.name, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "params": cfg.param_count(),
+                "world": world, "backend": "nccl",
+                "mesh": {"data": world // WIDE["model"],
+                         "model": WIDE["model"]},
+                "tokens_per_step": tokens, "losses": rec["losses"],
+                "same_loss_bits": all(r["loss_hex"] == rec["loss_hex"]
+                                      for r in recs),
+                "same_arrays": par_same_arrays([r["digest"]
+                                                for r in recs]),
+                "forward_loss": fw, "forward_s": forward[name]["seconds"],
+                "forward_max_allocated_gb":
+                    forward[name]["max_memory_allocated"] / 1e9,
+                "b_err": abs(rec["losses"][0] - fw) / abs(fw),
+                "fault_loss": rec["fault_loss"],
+                "fault_err": abs(rec["fault_loss"] - fw) / abs(fw),
+                "tol": WIDE_TOL, "mem_margin": WIDE_MEM,
+                "traced_gb": {k: tr[k] / 1e9 for k in ("args", "temp",
+                                                       "peak")},
+                "peak_gb": [[x / 1e9 for x in r["peak"]] for r in recs],
+                "before_gb": [[x / 1e9 for x in r["before"]]
+                              for r in recs],
+                "census_temp_gb": [r["census"]["temp"] / 1e9 for r in recs],
+                "census_args_gb": [r["census_args"] / 1e9 for r in recs],
+                "allocated_at_census_peak_gb": [
+                    r["census"]["allocated_at_peak"] / 1e9 for r in recs],
+                "largest_at_census_peak_gb": [
+                    x / 1e9 for x in rec["census"]["largest_at_peak"]],
+                "step_s": [r["step_s"] for r in recs],
+                "init_s": [r["init_s"] for r in recs],
+                "seconds_per_step": step_s,
+                "collective_host_s": max(r["collective_host_s"]
+                                         for r in recs),
+                "nccl_device_s": max(r["nccl_device_s"] for r in recs),
+                "bytes_per_step": rec["census"]["bytes"],
+                "collectives": rec["census"]["counts"],
+                "traced_collectives": {"bytes": tr["bytes"],
+                                       "counts": tr["counts"]},
+                "reckoned": rec["reckoned"],
+                "bf16_peak_share": flops / step_s / world / 989e12,
+                "parent_held_gb": held / 1e9, "nvidia_smi": smi}
+            emit(line)
+            assert line["same_loss_bits"] and line["same_arrays"], \
+                f"fsdp_wide {name}: the ranks differ"
+            assert line["b_err"] <= WIDE_TOL, \
+                f"fsdp_wide {name}: (b) {line['b_err']} over {WIDE_TOL}"
+            assert line["fault_err"] > WIDE_TOL, \
+                f"fsdp_wide {name}: the planted fault read " \
+                f"{line['fault_err']}, not above {WIDE_TOL}"
+            assert rec["losses"][1] < rec["losses"][0], \
+                f"fsdp_wide {name}: (c) losses {rec['losses']}"
+            for r in recs:
+                peak = max(r["peak"])
+                assert peak < CARD_HBM, f"fsdp_wide {name}: (d) {peak}"
+                assert r["peak"][-1] <= (1 + WIDE_MEM) * tr["peak"], \
+                    f"fsdp_wide {name}: (d) peak {r['peak']} over the " \
+                    f"traced {tr['peak']}"
+            if name == "W1":
+                for r in recs:
+                    got = (r["census"]["counts"].get("all-gather", 0),
+                           r["census"]["bytes"].get("all-gather", 0.0))
+                    want = (r["reckoned"]["fsdp_gathers"],
+                            r["reckoned"]["fsdp_gather_census_bytes"])
+                    assert got == want, \
+                        f"fsdp_wide {name}: all-gathers {got} vs {want}"
+        emit({"phase": "parallel", "part": "fsdp_wide", "plans": run,
+              "launches": launches, "ranks_s": ranks_s,
+              "part_s": time.perf_counter() - t_part})
+        assert not any(launches.values()), \
+            f"fsdp_wide launched port kernels: {launches}"
 
     def phase_train_families(self):
         """The SSM, hybrid, enc-dec and VLM families trained on the card
@@ -5319,8 +5880,11 @@ class Smoke:
         allocator's peak; (c) the collectives PAR_CENSUS's gloo ranks
         recorded (the parallel phase) against the fake trace of that
         plan at world 4; (d) the port's quadlint clean and DRY_EXAMPLES
-        on the card. (b)'s real step runs first, alone; then every other
-        process starts, side by side."""
+        on the card; (e) the fake world-4 traces of PAR_NCCL and of
+        fsdp_wide's plans (those the parallel phase traced, where it
+        ran), the all-gathers held to par_fsdp_gathers. (b)'s real step
+        runs first, alone; then every other process starts, side by
+        side."""
         import multiprocessing as mp
         import os
         import shutil
@@ -5346,6 +5910,7 @@ class Smoke:
         cell = shapes.ShapeCell(shape, "train", PAR["seq"], PAR["batch"])
         _, model, fsdp, mb = PAR_PLANS[PAR_CENSUS]
         world = PAR_PLANS[PAR_CENSUS][0]
+        world_e, model_e, _, mb_e = PAR_PLANS[PAR_NCCL]
         cuda = self.dev.type == "cuda"
 
         # (b) the real D = 1 step, counted, then timed, alone
@@ -5403,8 +5968,15 @@ class Smoke:
             "b": dict(arch=cfg16.name, mesh_kind="host1x1", cfg=cfg16,
                       fsdp=False),
             "c": dict(arch=cfg32.name, mesh_kind=f"host{world // model}x"
-                      f"{model}", cfg=cfg32, fsdp=fsdp, microbatches=mb)}
+                      f"{model}", cfg=cfg32, fsdp=fsdp, microbatches=mb),
+            "e": dict(arch=cfg32.name, mesh_kind=f"host{world_e // model_e}"
+                      f"x{model_e}", cfg=cfg32, fsdp=True,
+                      microbatches=mb_e)}
         procs, ctx = {}, mp.get_context("spawn")
+        if self.wide_traced is None:    # W1's trace, for (e)
+            for name, proc in wide_trace_start(out, ("W1",),
+                                               self.dev.type).items():
+                procs[f"wide {name}"] = (proc, None)
         for name, (argv, e) in jobs.items():
             log = open(out / f"{name.replace(' ', '_')}.log", "w")
             procs[name] = (subprocess.Popen(argv, env=e, cwd=str(root),
@@ -5516,6 +6088,37 @@ class Smoke:
              "counted_total": fake_bytes["total"], "nvidia_smi": smi}
         emit(c)
 
+        # (e) FSDP a unit at a time: the all-gathers of the fake world-4
+        # traces of the olmo FSDP plan and W1 against par_fsdp_gathers'
+        # reckoning; fsdp_wide's traced peaks a rank
+        mesh_e = f"host{world_e // model_e}x{model_e}"
+        re_ = dry_record(out / "e", cfg32.name, shape, mesh_e)
+        assert re_["status"] == "ok", \
+            f"(e) fake trace: {re_.get('error')}\n{logs['e'][-3000:]}"
+        wide = self.wide_traced or {"W1": wide_trace_read(out, "W1")}
+        fplan = shapi.tp_plan(data_axes=("data",), model_axis="model",
+                              fsdp=True)
+        held = {}
+        for name, c_, counts, nbytes, sizes, m_ in (
+                (PAR_NCCL, cfg32, re_["cost_raw"]["coll_counts"],
+                 re_["cost_raw"]["coll_detail"],
+                 {"data": world_e // model_e, "model": model_e}, mb_e),
+                ("fsdp_wide W1", wide_config("W1"), wide["W1"]["counts"],
+                 wide["W1"]["bytes"], {"data": WIDE["world"] // WIDE[
+                     "model"], "model": WIDE["model"]}, 1)):
+            g = par_fsdp_gathers(c_, sizes, fplan, m_)
+            held[name] = {"traced": {"count": counts.get("all-gather", 0),
+                                     "bytes": nbytes.get("all-gather", 0.0)},
+                          "reckoned": {"count": g["count"],
+                                       "bytes": g["census_bytes"]}}
+        e = {"phase": "dryrun", "part": "e", "all_gathers": held,
+             "wide_traced_gb": {n: {k: w[k] / 1e9 for k in ("args", "temp",
+                                                            "peak")}
+                                for n, w in wide.items()},
+             "wide_trace_device": {n: w["device"] for n, w in wide.items()},
+             "card_gb": CARD_HBM / 1e9, "nvidia_smi": smi}
+        emit(e)
+
         # (d) the lint and the example twins
         d = {"phase": "dryrun", "part": "d", "lint_exit": codes["d lint"],
              "lint_output": logs["d lint"][-2000:],
@@ -5528,12 +6131,12 @@ class Smoke:
 
         for line in cells:
             key = (line["arch"], line["shape"], line["mesh"])
-            if key != DRY_MOE:
-                assert line["status"] == "ok" and line["exit_code"] == 0, \
-                    f"(a) {key}: {line}"
+            assert line["status"] == "ok" and line["exit_code"] == 0, \
+                f"(a) {key}: {line}"
+            if key == DRY_FSDP_FITS:
+                assert line["fsdp"] and line["fits_the_card"], \
+                    f"(a) {key}: {line['hbm_gb_per_rank']} GB a rank"
         for name, code in codes.items():
-            if name == "a " + " ".join(DRY_MOE):
-                continue   # item 6a's finding: printed, not fatal
             assert code == 0, f"dryrun {name}: exit {code}\n" \
                               f"{logs[name][-3000:]}"
         assert (b["flops_real"], b["op_bytes_real"]) == \
@@ -5544,6 +6147,11 @@ class Smoke:
             assert r["bytes"] == fake_bytes and r["counts"] == fake_counts, \
                 f"(c) a rank's collectives differ from the trace: {r}"
         assert fake_counts["count"] > 0, "(c) the 2 x 2 plan traced none"
+        for name, h in held.items():
+            assert h["traced"] == h["reckoned"], \
+                f"(e) {name}: all-gathers {h['traced']} vs {h['reckoned']}"
+        for name, w in e["wide_traced_gb"].items():
+            assert w["peak"] < CARD_HBM / 1e9, f"(e) {name}: {w}"
         assert d["lint_exit"] == 0 and not logs["d lint"].strip(), \
             f"(d) quadlint: {logs['d lint'][-2000:]}"
         for ex, got in d["examples"].items():
@@ -5708,9 +6316,13 @@ class Smoke:
 
 
 def main() -> int:
+    only = None
     if len(sys.argv) > 1:
-        print(__doc__, file=sys.stderr)
-        return 2
+        only = sys.argv[2].split(",") if len(sys.argv) == 3 \
+            and sys.argv[1] == "--phases" else []
+        if not only or not set(only) <= set(PHASES):
+            print(__doc__, file=sys.stderr)
+            return 2
     if torch is None or not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on "
               "the GPU only", file=sys.stderr)
@@ -5731,9 +6343,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_s = {}
     for p in PHASES:
+        if only is not None and p not in only:
+            continue
         t_p = time.perf_counter()
         getattr(smoke, f"phase_{p}")()
         phase_s[p] = time.perf_counter() - t_p
+    if only is not None:
+        print(nvidia_smi(), flush=True)
+        emit({"seconds": time.perf_counter() - t0, "phases": phase_s,
+              "only": only})
+        return 0
     for name, entry in smoke.kernels.items():
         entry["launches"] = smoke.launches[name]
         entry["launches_per_iteration"] = smoke.per_iteration(name)

@@ -15,13 +15,16 @@ Over a mesh (``mesh=``, a ``DeviceMesh`` named like the plan's axes, and
 ``plan=``, ``sharding.tp_plan``) the parameters and the optimizer
 moments are DTensors placed as ``train_shardings`` says
 (``sharding.distribute``). The step places a plain batch on the data
-axes (each rank keeps its rows of the global batch it was given),
-gathers the FSDP-sharded parameters at their use (all-gather forward,
-reduce-scatter of their gradients backward), runs the forward under
-``sharding.activation_context`` and brings every gradient to its
-parameter's placements before AdamW. Microbatches split each rank's
-local rows. The metrics come back as plain tensors, the same bits on
-every rank.
+axes (each rank keeps its rows of the global batch it was given) and
+runs the forward and backward under ``sharding.activation_context``.
+Under FSDP the model gathers the sharded parameters where it uses them
+(``sharding.api.fsdp_gather``): one unit of the layer stack at a time,
+inside the recomputed block, so the recompute gathers it again; the
+top-level leaves at their use. Each unit's gradient is reduce-scattered
+as its backward ends, and the step brings any gradient still placed
+otherwise to its parameter's placements before AdamW. Microbatches split
+each rank's local rows. The metrics come back as plain tensors, the
+same bits on every rank.
 """
 from __future__ import annotations
 
@@ -168,40 +171,19 @@ def _local_pieces(mesh, batch, n: int) -> list:
     return [tree.unflatten(spec, [p[k] for p in per]) for k in range(n)]
 
 
-def _compute_placements(plan, x) -> tuple:
-    """Where a parameter lives while the forward uses it: its placements
-    with the FSDP axis gathered."""
-    from torch.distributed.tensor import Replicate
-
-    if not plan.fsdp:
-        return tuple(x.placements)
-    names = x.device_mesh.mesh_dim_names
-    return tuple(Replicate() if n == plan.fsdp_axis else p
-                 for n, p in zip(names, x.placements))
-
-
-def _for_compute(plan, x):
-    """``x`` gathered over the FSDP axis (a differentiable redistribute:
-    its gradient comes back reduce-scattered), or ``x`` itself."""
-    want = _compute_placements(plan, x)
-    return x if want == tuple(x.placements) else x.redistribute(
-        x.device_mesh, want)
-
-
 def _dist_value_and_grad(cfg, mesh, plan, params, batch):
     """``((loss, metrics), grads)`` of ``loss_fn`` over the mesh: the
     metrics plain (reduced) tensors, each gradient a DTensor placed as its
-    parameter."""
+    parameter. The model gathers FSDP's shards itself, a unit at a time
+    (``sharding.api.fsdp_gather``), so every FSDP gradient comes back
+    reduce-scattered to its parameter's placements; the redistribute
+    below is the backstop for any other."""
     from torch.distributed.tensor import DTensor
 
-    def loss(cfg_, p, b):
-        return M.loss_fn(cfg_, tree.map(lambda x: _for_compute(plan, x), p),
-                         b)
-
-    # the backward too meets the plain tensors the forward made
+    # the backward too meets the plain tensors the forward made, and the
+    # recomputed blocks gather under the same context
     with shapi.activation_context(mesh, plan):
-        (value, metrics), grads = M.value_and_grad(cfg, params, batch,
-                                                   loss=loss)
+        (value, metrics), grads = M.value_and_grad(cfg, params, batch)
     grads = tree.map(lambda g, p: g if tuple(g.placements) == tuple(
         p.placements) else g.redistribute(mesh, p.placements), grads,
         params)

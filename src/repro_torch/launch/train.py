@@ -29,6 +29,7 @@ from typing import Any, Callable, Optional
 
 import torch.distributed as dist
 
+from .. import tree
 from ..configs import get_arch
 from ..core.operators import resolve_device
 from ..data import DataConfig, DPPBatchStream, DPPSelector, TokenStream
@@ -101,14 +102,12 @@ def build_run(cfg, *, steps: int, seq: int = 64, batch: int = 8,
             pool_factor=3, steps_per_item=2, device=dev))
 
     def init_state():
-        params, axes = M.init_model(0, cfg, device=dev)
-        n = sum(x.numel() for x in M.LM(cfg, params).parameters())
-        where = str(dev)
-        if mesh is not None:
-            params = shapi.distribute(
-                params, mesh, shapi.param_shardings(plan, mesh, params,
-                                                    axes))
-            where = f"mesh {shapi.mesh_sizes(mesh)}"
+        # over a mesh each leaf is placed as soon as it is drawn
+        params, _ = M.init_model(0, cfg, device=dev, place=None if mesh is
+                                 None else shapi.leaf_placer(plan, mesh))
+        n = sum(x.numel() for x in tree.leaves(params))
+        where = str(dev) if mesh is None else \
+            f"mesh {shapi.mesh_sizes(mesh)}"
         if _rank() == 0:
             print(f"[train] {cfg.name}: {n / 1e6:.1f}M params on {where}")
         return params, opt.init(params)

@@ -48,9 +48,9 @@ def attn_init(make, cfg, dtype):
             {"wq": aq, "wk": ak, "wv": av, "wo": ao})
 
 
-def _split_heads(x: Tensor, n: int) -> Tensor:
+def _split_heads(x: Tensor, n: int, split_batch: bool = False) -> Tensor:
     b, t, _ = x.shape
-    return whole_heads(x, n).reshape(b, t, n, -1)
+    return whole_heads(x, n, split_batch).reshape(b, t, n, -1)
 
 
 def _repeat_kv(k: Tensor, n_heads: int) -> Tensor:
@@ -256,12 +256,15 @@ def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
     streams under M-RoPE."""
     hd = cfg.head_dim_
     b, t, _ = x.shape
-    q = _split_heads(cm.dense_apply(p["wq"], x), cfg.n_heads)
+    # training attends whole heads of a share of the batch where a mesh
+    # dim cannot split the heads (sharding.api.whole_heads)
+    sb = mode == "train"
+    q = _split_heads(cm.dense_apply(p["wq"], x), cfg.n_heads, sb)
     if mode == "cross":
         k, v = cross_kv
     else:
-        k = _split_heads(cm.dense_apply(p["wk"], x), cfg.n_kv_heads)
-        v = _split_heads(cm.dense_apply(p["wv"], x), cfg.n_kv_heads)
+        k = _split_heads(cm.dense_apply(p["wk"], x), cfg.n_kv_heads, sb)
+        v = _split_heads(cm.dense_apply(p["wv"], x), cfg.n_kv_heads, sb)
 
     if cfg.rope == "rope" and mode != "cross":
         q = cm.apply_rope(q, positions, cfg.rope_theta)
@@ -294,7 +297,7 @@ def attn_apply(cfg, p, x: Tensor, *, positions: Tensor, mode: str = "train",
     # whose f32 output the reference's scan carry refuses (ROADMAP Queue
     # 3), joins the bf16 residual stream here.
     out = whole_heads_grad(out.reshape(b, t, cfg.n_heads * hd),
-                           cfg.n_heads).to(p["wo"]["w"].dtype)
+                           cfg.n_heads, sb).to(p["wo"]["w"].dtype)
     return cm.dense_apply(p["wo"], out), cache
 
 

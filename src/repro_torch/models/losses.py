@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.api import constrain, einsum, logsumexp
+from ..sharding.api import constrain, einsum, gather_last, logsumexp
 
 Tensor = torch.Tensor
 
@@ -33,7 +33,7 @@ def chunked_cross_entropy(x: Tensor, embed_table: Tensor, labels: Tensor,
         logits = einsum("bcd,vd->bcv", x[:, sl].to(torch.float32), table)
         lse = logsumexp(logits)
         # under a mesh the gather of vocab-sharded logits is partial
-        gold = constrain(torch.gather(logits, -1, labels[:, sl, None].long()),
+        gold = constrain(gather_last(logits, labels[:, sl, None].long()),
                          ("batch", "seq", None))[..., 0]
         mi = mask[:, sl]
         tot = tot + ((lse - gold) * mi).sum()

@@ -45,6 +45,7 @@ the loss ignores the vision positions.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -54,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..core.operators import resolve_device
-from ..sharding.api import constrain
+from ..sharding.api import _axes_leaves, active, constrain, fsdp_gather, \
+    fsdp_on_stack_axis, reentered
 from . import attention as attn
 from . import common as cm
 from . import losses
@@ -255,19 +257,43 @@ def _meta(shape, fan_in, scale, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def init_model(key, cfg, *, device="cuda"):
+def init_model(key, cfg, *, device="cuda", place=None):
     """``(params, axes)`` for ``cfg``. ``key`` is an int seed (a generator
     on ``device`` seeded with it) or a ``torch.Generator``, whose device
     then holds the parameters. The draws follow the reference's
     distributions, not its bits: parity starts from the reference's
-    parameters through ``convert.params_from_numpy``."""
+    parameters through ``convert.params_from_numpy``.
+
+    ``place(leaf, axes) -> leaf`` (``sharding.api.leaf_placer``) takes
+    each leaf as soon as it is drawn, with its axes tuple, and its result
+    stands in the tree: a rank keeps its shard and never holds the whole
+    model. The draws and their order are those without it, so the
+    logical values are the same bits."""
     _check_family(cfg)
     if isinstance(key, torch.Generator):
         gen = key
     else:
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(int(key))
-    return _build(cfg, _drawer(gen))
+    if place is None:
+        return _build(cfg, _drawer(gen))
+    # each draw's axes: the skeleton's leaves, in the order _build draws
+    order: list = []
+
+    def record(shape, fan_in, scale, dtype):
+        order.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return order[-1]
+
+    skeleton, axes = _build(cfg, record)
+    slot = {id(t): i for i, t in enumerate(tree.leaves(skeleton))}
+    ax = _axes_leaves(axes)
+    draw_axes = iter([ax[slot[id(t)]] for t in order])
+    draw = _drawer(gen)
+
+    def make(shape, fan_in, scale, dtype):
+        return place(draw(shape, fan_in, scale, dtype), next(draw_axes))
+
+    return _build(cfg, make)
 
 
 def param_skeleton(cfg):
@@ -281,9 +307,17 @@ def param_skeleton(cfg):
 
 
 def _maybe_remat(cfg, fn):
+    """``fn`` recomputed in the backward pass (``cfg.remat == "block"``,
+    with grad enabled), under the activation context it ran under: the
+    backward of CUDA tensors runs on autograd's device thread, which does
+    not see this thread's context, and the recompute gathers FSDP's
+    shards and places its activations as the forward did."""
     if cfg.remat == "block" and torch.is_grad_enabled():
+        ctx = active()
+        extra = {} if ctx is None else {"context_fn": lambda: (
+            contextlib.nullcontext(), reentered(ctx))}
         return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 preserve_rng_state=False)
+                                 preserve_rng_state=False, **extra)
     return fn
 
 
@@ -304,15 +338,24 @@ def _scan_stack(cfg, stack_params, x: Tensor, apply_one, caches=None, *,
     layer has one). The leaves are unbound once, so the backward pass
     stacks each leaf's layer gradients in one go; only training
     recomputes blocks (``cfg.remat``; ``remat=False`` leaves a stack's
-    blocks to the recompute of the block around it)."""
+    blocks to the recompute of the block around it).
+
+    Under FSDP (``sharding.api.fsdp_gather``) each layer's slices are
+    gathered inside its block, so one layer (or unit) is gathered at a
+    time; the recompute saves the sharded slices and gathers them again,
+    and each slice's gradient is reduce-scattered as its block's backward
+    ends. A leaf split on its stack dim is gathered whole first
+    (``fsdp_on_stack_axis``)."""
     leaves, spec = tree.flatten(stack_params)
+    leaves = [fsdp_gather(leaf) if fsdp_on_stack_axis(leaf) else leaf
+              for leaf in leaves]
     layers = [leaf.unbind(0) for leaf in leaves]
     n = leaves[0].shape[0]
     aux = 0.0
     if caches is None:
         # (x, aux) of a layer: its cache is None
         def body(p_i, x):
-            return apply_one(p_i, x, None)[::2]
+            return apply_one(fsdp_gather(p_i), x, None)[::2]
 
         if remat:
             body = _maybe_remat(cfg, body)
@@ -323,7 +366,8 @@ def _scan_stack(cfg, stack_params, x: Tensor, apply_one, caches=None, *,
         return x, None, aux
     for i, c_i in enumerate(_layer_caches(caches, n)):
         x, _, a_i = apply_one(
-            tree.unflatten(spec, [lyr[i] for lyr in layers]), x, c_i)
+            fsdp_gather(tree.unflatten(spec, [lyr[i] for lyr in layers])),
+            x, c_i)
         aux = aux + a_i
     return x, caches, aux
 
@@ -352,7 +396,7 @@ def _embed_inputs(cfg, params, batch):
     """Token (and vision) embedding; returns (x, positions,
     label_mask)."""
     tokens = batch["tokens"]
-    x = cm.embed_apply(params["embed"], tokens)
+    x = cm.embed_apply(fsdp_gather(params["embed"]), tokens)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
     if cfg.family == "vlm":
         vis = _need(batch, "vision_embeds", cfg, "(B, Tv, d) patch "
@@ -422,7 +466,9 @@ def _apply_stacks(cfg, params, x: Tensor, *, mode: str, positions: Tensor,
 
     # hybrid: each unit runs its k_unit Mamba blocks, then the ONE shared
     # attention block with the unit's own KV cache
-    shared = params["shared_attn"]
+    # gathered once a step, before the unit loop (a loop-invariant
+    # operand, as XLA treats it)
+    shared = fsdp_gather(params["shared_attn"])
 
     def unit_one(p_u, x, c_u):
         # each Mamba block recomputed on its own inside the unit's
@@ -463,7 +509,7 @@ def _encode(cfg, params, frames: Tensor) -> Tensor:
         return dense_block_apply(cfg, p_i, x, positions=pos, mode="encoder")
 
     x, _, _ = _scan_stack(cfg, params["enc_blocks"], x, one)
-    return cm.norm_apply(cfg.norm, params["enc_norm"], x)
+    return cm.norm_apply(cfg.norm, fsdp_gather(params["enc_norm"]), x)
 
 
 def _enc_memory(cfg, params, batch):
@@ -477,12 +523,16 @@ def _enc_memory(cfg, params, batch):
 
 def _loss(cfg, params, batch):
     enc_memory = _enc_memory(cfg, params, batch)
-    x, positions, mask = _embed_inputs(cfg, params, batch)
+    # the top-level leaves are gathered at their use (a tied table once,
+    # for both of its uses)
+    embed = fsdp_gather(params["embed"])
+    x, positions, mask = _embed_inputs(cfg, dict(params, embed=embed),
+                                       batch)
     x, _, aux = _apply_stacks(cfg, params, x, mode="train",
                               positions=positions, enc_memory=enc_memory)
-    x = cm.norm_apply(cfg.norm, params["final_norm"], x)
-    table = params["embed"]["table"] if cfg.tie_embeddings else \
-        params["unembed"]["table"]
+    x = cm.norm_apply(cfg.norm, fsdp_gather(params["final_norm"]), x)
+    table = embed["table"] if cfg.tie_embeddings else \
+        fsdp_gather(params["unembed"]["table"])
     labels = batch["labels"]
     if cfg.family == "vlm":
         # labels cover the text positions; the vision ones get label 0
@@ -626,9 +676,9 @@ def make_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
 
 
 def _logits(cfg, params, x: Tensor) -> Tensor:
-    x = cm.norm_apply(cfg.norm, params["final_norm"], x)
-    table = params["embed"]["table"] if cfg.tie_embeddings else \
-        params["unembed"]["table"]
+    x = cm.norm_apply(cfg.norm, fsdp_gather(params["final_norm"]), x)
+    table = fsdp_gather(params["embed"]["table"] if cfg.tie_embeddings
+                        else params["unembed"]["table"])
     return cm.unembed_logits({"table": table}, x)
 
 
@@ -656,7 +706,7 @@ def decode_step(cfg, params, caches, batch):
     ``caches`` in place and returns ``(caches, logits)`` (B, 1, V) f32."""
     enc_memory = _need(batch, "enc_memory", cfg, "the encoder's memory, "
                        "from _encode") if cfg.is_encdec else None
-    x = cm.embed_apply(params["embed"], batch["tokens"])
+    x = cm.embed_apply(fsdp_gather(params["embed"]), batch["tokens"])
     pos = batch["position"]
     if cfg.rope == "none":
         x = x + _sinusoid(1, x.shape[2], offset=pos.reshape(-1)[0],

@@ -83,24 +83,30 @@ def _route(cfg, p, x: Tensor, *, group_size: int = 4096,
                           p["router"]["w"])
     probs = torch.softmax(logits, dim=-1)
     slots = torch.arange(cap, device=x.device)
-    dispatch = torch.zeros(xt.shape[:2] + (e, cap), dtype=x.dtype,
-                           device=x.device)
-    combine = torch.zeros(xt.shape[:2] + (e, cap), dtype=torch.float32,
-                          device=x.device)
     remaining = probs
-    # the per-expert fill accumulates across the k rounds
-    fill = torch.zeros((xt.shape[0], e), dtype=torch.long, device=x.device)
+    # the per-expert fill accumulates across the k rounds; the first
+    # round's terms start the sums (as 0 + x would: the same bits), so
+    # that over a mesh they keep the groups' placement (a plain zeros of
+    # the global shape would stand for every rank's groups on each)
+    dispatch = combine = fill = None
     for _ in range(cfg.moe_top_k):
         idx = torch.argmax(remaining, dim=-1)                    # (n, g)
         gate = torch.gather(remaining, -1, idx[..., None])[..., 0]
         onehot = F.one_hot(idx, e)                               # (n, g, e)
-        pos = torch.cumsum(onehot, dim=1) - 1 + fill[:, None, :]
-        fill = fill + onehot.sum(dim=1)
+        pos = torch.cumsum(onehot, dim=1) - 1
+        if fill is not None:
+            pos = pos + fill[:, None, :]
+        fill = onehot.sum(dim=1) if fill is None else \
+            fill + onehot.sum(dim=1)
         sel = (onehot > 0) & (pos < cap)
         contrib = (sel[..., None] & (pos.clamp(0, cap - 1)[..., None]
                                      == slots)).to(torch.float32)
-        dispatch = dispatch + contrib.to(x.dtype)
-        combine = combine + contrib * gate[..., None, None]
+        if dispatch is None:
+            dispatch = contrib.to(x.dtype)
+            combine = contrib * gate[..., None, None]
+        else:
+            dispatch = dispatch + contrib.to(x.dtype)
+            combine = combine + contrib * gate[..., None, None]
         remaining = remaining * (1.0 - onehot.to(remaining.dtype))
     return Routes(probs, dispatch, combine, g, cap)
 

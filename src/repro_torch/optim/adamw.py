@@ -25,11 +25,36 @@ from .. import tree
 from ..sharding.api import is_dtensor
 
 
+# entries of a leaf's local tensor updated at a time: the update's f32
+# temporaries are a piece's, not a whole leaf's (llama3-405b's stacked MLP
+# leaves hold 8.7e8 entries a rank at 4 layers on data = 2 x model = 2)
+UPDATE_CHUNK = 1 << 26
+
+
+def _local(x) -> torch.Tensor:
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _pieces(*xs) -> list:
+    """Matching flat pieces of at most ``UPDATE_CHUNK`` entries of the
+    local tensors of ``xs`` (views: a write lands in the tensor), or the
+    whole local tensors where one is not contiguous. The update is
+    elementwise, so a piece gets the bits the whole leaf would."""
+    locs = [_local(x) for x in xs]
+    n = locs[0].numel()
+    if n <= UPDATE_CHUNK or not all(t.is_contiguous() for t in locs):
+        return [locs]
+    flat = [t.view(-1) for t in locs]
+    return [[f[i:i + UPDATE_CHUNK] for f in flat]
+            for i in range(0, n, UPDATE_CHUNK)]
+
+
 def _mesh_norm(gs: list) -> torch.Tensor:
-    """sqrt of the sum of squares of DTensor leaves over their whole mesh,
-    a plain tensor with the same bits on every rank: each rank adds its
-    local squares, a leaf replicated over mesh dims divided by their size
-    (exact for powers of two), then one all-reduce a mesh dimension."""
+    """sqrt of the sum of squares of DTensor leaves (in f32) over their
+    whole mesh, a plain tensor with the same bits on every rank: each rank
+    adds its local squares, a leaf replicated over mesh dims divided by
+    their size (exact for powers of two), then one all-reduce a mesh
+    dimension."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
 
@@ -40,7 +65,7 @@ def _mesh_norm(gs: list) -> torch.Tensor:
         for size, pl in zip(mesh.shape, g.placements):
             if isinstance(pl, Replicate):
                 rep *= size
-        loc = g.to_local()
+        loc = g.to_local().to(torch.float32)
         total = total + torch.sum(loc * loc) / rep
     for d in range(mesh.ndim):
         if mesh.shape[d] > 1:
@@ -83,20 +108,20 @@ class AdamW(NamedTuple):
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
         """One step: ``(params, state, {"grad_norm", "lr"})``, the first two
-        the same tensors as given, updated in place."""
-        g32 = [g.to(torch.float32) for g in tree.leaves(grads)]
-        if g32 and is_dtensor(g32[0]):
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
+        the same tensors as given, updated in place. Each leaf's gradient
+        is taken to f32 where it is used, and a DTensor leaf is updated
+        through its local tensor, ``UPDATE_CHUNK`` entries at a time: the
+        arithmetic of the whole tree in f32, with one piece's
+        temporaries."""
+        gs = tree.leaves(grads)
+        return self._update(gs, state, params, _mesh_norm if gs and
+                            is_dtensor(gs[0]) else None)
 
-            with implicit_replication():   # the 0-d scale meets DTensors
-                return self._update(g32, state, params, _mesh_norm)
-        return self._update(g32, state, params, None)
-
-    def _update(self, g32, state, params, mesh_norm):
+    def _update(self, gs, state, params, mesh_norm):
         if self.clip_norm:
-            gnorm = mesh_norm(g32) if mesh_norm else \
-                torch.sqrt(sum(torch.sum(g * g) for g in g32))
+            gnorm = mesh_norm(gs) if mesh_norm else torch.sqrt(sum(
+                torch.sum(g * g) for g in (x.to(torch.float32)
+                                           for x in gs)))
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
         else:
@@ -110,15 +135,17 @@ class AdamW(NamedTuple):
         b2c = _f32(1.0 - torch.tensor(self.b2, dtype=torch.float32) ** c)
         ps, ms, vs = tree.leaves(params), tree.leaves(state.m), \
             tree.leaves(state.v)
-        for p, m, v, g in zip(ps, ms, vs, g32):
-            if scale is not None:
-                g = g * scale
-            m.mul_(self.b1).add_((1 - self.b1) * g)
-            v.mul_(self.b2).add_((1 - self.b2) * g * g)
-            p32 = p.to(torch.float32)
-            step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps) \
-                + self.weight_decay * p32
-            p.copy_(p32 - lr * step)
+        for leaf in zip(ps, ms, vs, gs):
+            for p, m, v, g in _pieces(*leaf):
+                g = g.to(torch.float32)
+                if scale is not None:
+                    g = g * scale
+                m.mul_(self.b1).add_((1 - self.b1) * g)
+                v.mul_(self.b2).add_((1 - self.b2) * g * g)
+                p32 = p.to(torch.float32)
+                step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps) \
+                    + self.weight_decay * p32
+                p.copy_(p32 - lr * step)
         return params, AdamWState(count=count, m=state.m, v=state.v), \
             {"grad_norm": gnorm, "lr": lr}
 

@@ -263,6 +263,25 @@ def distribute(tree_: Any, mesh, shardings: Any):
         x, mesh, list(pl), src_data_rank=None), tree_, shardings)
 
 
+def leaf_placer(plan: Plan, mesh):
+    """``place(leaf, axes)`` for ``models.model.init_model``: the whole
+    leaf (the same on every rank) as a DTensor on ``mesh`` placed as
+    ``param_shardings`` places it, its local shard copied out so that the
+    whole leaf is freed as soon as the caller drops it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(x, axes):
+        shape = tuple(x.shape)
+        pl = placements(_fix_divisibility(spec_for_param(plan, axes, shape),
+                                          shape, mesh), mesh)
+        d = distribute_tensor(x, mesh, list(pl), src_data_rank=None)
+        return DTensor.from_local(d.to_local().clone(), mesh, d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+
+    return place
+
+
 def _placement_leaves(shardings) -> list:
     """The placements tuples of a tree of them, in ``repro_torch.tree``'s
     order."""
@@ -304,6 +323,70 @@ def activation_context(mesh, plan: Plan):
 def active():
     """``(mesh, plan)`` of the active context, or None."""
     return getattr(_ctx, "val", None)
+
+
+@contextlib.contextmanager
+def reentered(ctx):
+    """``ctx`` (what ``active()`` returned) active in this thread again
+    for the block, without touching the implicit replication that the
+    outer ``activation_context`` holds: for work that runs later on
+    another thread, as a recomputed block does on autograd's device
+    thread."""
+    prev = getattr(_ctx, "val", None)
+    _ctx.val = ctx
+    try:
+        yield
+    finally:
+        _ctx.val = prev
+
+
+def _for_compute(plan: Plan, x):
+    """``x`` where the forward uses it: gathered over the FSDP axis (a
+    differentiable redistribute: its gradient comes back
+    reduce-scattered), or ``x`` itself."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    names = x.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if n == plan.fsdp_axis else p
+                 for n, p in zip(names, x.placements))
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def fsdp_gather(params: Any):
+    """``params`` (a tree, or one tensor) with every DTensor leaf gathered
+    over the active plan's FSDP axis: the all-gather forward, whose
+    gradient comes back reduce-scattered to the leaf's own placements.
+    The model calls it where a parameter is used (a unit of the layer
+    stack inside its recomputed block, a top-level leaf at its use), so
+    one unit is gathered at a time, as the reference's compiled step
+    gathers inside its scan. Without a context, or under a plan without
+    FSDP, ``params`` itself."""
+    ctx = active()
+    if ctx is None or not ctx[1].fsdp:
+        return params
+    plan = ctx[1]
+    return tree.map(lambda x: _for_compute(plan, x), params)
+
+
+def fsdp_on_stack_axis(x) -> bool:
+    """Whether the stacked leaf ``x`` has its FSDP shard on its leading
+    (stack) dim under the active context. Its per-unit slices are then
+    not rank-local, so the stack gathers such a leaf whole before it
+    unbinds it (``models.model._scan_stack``), as XLA gathers a scan
+    operand split on its scan axis before the loop. FSDP picks the
+    stack dim where it is a leaf's largest free dim: the per-layer
+    biases over a model-split width (whisper-medium, qwen2-vl-2b), the
+    SSM's conv, skip and state leaves (falcon-mamba-7b, zamba2-1.2b), at
+    their published widths. (The plans put no other mesh axis on a
+    stack dim: ``layers`` maps to None.)"""
+    ctx = active()
+    if ctx is None or not ctx[1].fsdp or not is_dtensor(x):
+        return False
+    return any(n == ctx[1].fsdp_axis and p.is_shard() and p.dim == 0
+               for n, p in zip(x.device_mesh.mesh_dim_names, x.placements))
 
 
 def sharded_embedding(table, tokens):
@@ -388,6 +471,42 @@ def logsumexp(logits):
         if any(getattr(p, "dim", None) == last for p in logits.placements):
             return _split_logsumexp(logits)
     return torch.logsumexp(logits, dim=-1)
+
+
+def gather_last(logits, idx):
+    """``torch.gather(logits, -1, idx)``, ``idx`` (..., 1); for a DTensor
+    whose last dim is split, rank by rank: each rank picks the ids that
+    fall in its slice (the others read 0) and the output is partial over
+    those mesh dims, to be summed by the next ``constrain``. DTensor's own
+    backward of the gather builds a zero tensor of the global logits'
+    shape on every rank (212 GB for llama4's (256, 1024, 202048) chunk);
+    here each rank's gradient is its own slice."""
+    import torch
+
+    last = logits.ndim - 1 if is_dtensor(logits) else -1
+    if last < 0 or not any(p.is_shard() and p.dim == last
+                           for p in logits.placements):
+        return torch.gather(logits, -1, idx)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = logits.device_mesh
+    split = [p.is_shard() and p.dim == last for p in logits.placements]
+    want = [Replicate() if s else p
+            for s, p in zip(split, logits.placements)]
+    if not is_dtensor(idx):
+        idx = DTensor.from_local(idx, mesh, _rep(mesh), run_check=False)
+    if list(idx.placements) != want:
+        idx = idx.redistribute(mesh, want)
+    loc = logits.to_local()
+    off, _ = _local_window(logits)
+    i = idx.to_local().long() - off[last]
+    inside = (i >= 0) & (i < loc.shape[-1])
+    got = torch.gather(loc, -1, torch.where(inside, i, 0)) \
+        * inside.to(loc.dtype)
+    return DTensor.from_local(got, mesh, [Partial() if s else p for s, p in
+                                          zip(split, logits.placements)],
+                              run_check=False, shape=idx.shape,
+                              stride=_contiguous(idx.shape))
 
 
 def _split_logsumexp(logits):
@@ -508,26 +627,38 @@ def _contiguous(shape) -> tuple:
     return tuple(reversed(stride))
 
 
-def whole_heads(x, n: int):
-    """``x`` (..., n * width) with its last dim whole over every mesh dim
-    that splits it into parts not holding whole heads (n % parts != 0):
-    llama4's 40 heads over a model axis of 16. DTensor refuses to split
-    such a dim into (n, width), where GSPMD pads; the heads are gathered
-    instead. Anything else passes as it is."""
+def whole_heads(x, n: int, split_batch: bool = False):
+    """``x`` (B, ..., n * width) with its last dim whole over every mesh
+    dim that splits it into parts not holding whole heads (n % parts !=
+    0): llama4's 40 heads over a model axis of 16. DTensor refuses to
+    split such a dim into (n, width), where GSPMD pads; the heads are
+    gathered instead. With ``split_batch`` (training) such a mesh dim
+    splits the batch (dim 0) where the batch divides, so that a rank
+    attends whole heads of its share of the sequences (an all-to-all)
+    rather than every head of all of them. Anything else passes as it
+    is."""
     if not is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
     last = x.ndim - 1
-    want = [Replicate() if p.is_shard() and p.dim == last
-            and n % x.device_mesh.shape[j] else p
-            for j, p in enumerate(x.placements)]
+    mesh = x.device_mesh
+    want = list(x.placements)
+    for j, p in enumerate(want):
+        if not (p.is_shard() and p.dim == last and n % mesh.shape[j]):
+            continue
+        parts = mesh.shape[j]
+        for i, q in enumerate(want):
+            if q.is_shard() and q.dim == 0:
+                parts *= mesh.shape[i]
+        want[j] = Shard(0) if split_batch and last > 0 \
+            and x.shape[0] % parts == 0 else Replicate()
     if want == list(x.placements):
         return x
-    return x.redistribute(x.device_mesh, want)
+    return x.redistribute(mesh, want)
 
 
-def whole_heads_grad(x, n: int):
+def whole_heads_grad(x, n: int, split_batch: bool = False):
     """``x`` itself, whose gradient comes back with ``whole_heads``'
     placements: where the heads are merged, (..., n, width) ->
     (..., n * width), the backward splits that dim again, which DTensor
@@ -544,7 +675,7 @@ def whole_heads_grad(x, n: int):
 
         @staticmethod
         def backward(ctx, g):
-            return whole_heads(g, n)
+            return whole_heads(g, n, split_batch)
 
     return _WholeHeadsGrad.apply(x) if x.requires_grad else x
 

@@ -42,6 +42,7 @@ from repro.configs import list_archs  # noqa: E402
 from repro.launch import roofline as rroof  # noqa: E402
 from repro.launch import shapes as rshapes  # noqa: E402
 from repro.utils.hlo import collective_bytes as ref_collective_bytes  # noqa
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
@@ -329,3 +330,154 @@ def test_roofline_refuses_records_of_two_devices(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         R.main(["--dir", str(tmp_path)])
     assert e.value.code == 2
+
+
+def _fsdp_trace(cfg, shape, mesh_kind="host4x1"):
+    """One FSDP step of ``cfg`` traced on a fake world (model = 1 on
+    ``host4x1``: every all-gather is one of FSDP's): the census, the
+    memory record, and the placements of the parameters."""
+    with D.fake_world(D._world(mesh_kind)):
+        mesh = D._mesh(mesh_kind, "cpu")
+        plan = D._single_pod_plan_axes(mesh, D._plan_for(cfg, fsdp=True))
+        census, memory, _, _ = D._trace_cell(cfg, shape, mesh, plan,
+                                             device="cpu")
+        skeleton, axes = M._build(cfg, M._meta)
+        specs = shapi.param_specs(plan, shapi.mesh_sizes(mesh), skeleton,
+                                  axes)
+    return census, memory, skeleton, specs
+
+
+def _spec_leaves(specs) -> list:
+    if isinstance(specs, dict):
+        return [(f"{k}.{p}" if p else k, s) for k in sorted(specs)
+                for p, s in _spec_leaves(specs[k])]
+    return [("", specs)]
+
+
+def _expected_gathers(cfg, skeleton, specs) -> tuple:
+    """All-gathers of one FSDP step, from the placements: each stack leaf
+    split off its stack dim twice a unit (its block's forward and its
+    recompute), a leaf split on its stack dim once (gathered whole before
+    the loop), every other leaf (the top-level ones, zamba2's shared
+    block) once at its use. Also the bytes one unit of the stack holds
+    gathered."""
+    stacks = ("blocks", "units", "tail", "enc_blocks")
+    n, unit_bytes = 0, 0
+    for (path, spec), x in zip(_spec_leaves(specs), tree.leaves(skeleton)):
+        if "data" not in spec:
+            continue
+        if path.split(".")[0] not in stacks:
+            n += 1
+        elif spec[0] == "data":
+            n += 1
+        else:
+            n += 2 * x.shape[0]
+        if path.split(".")[0] in ("blocks", "units"):
+            unit_bytes += x.numel() // x.shape[0] * x.element_size()
+    return n, unit_bytes
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "zamba2-1.2b"])
+def test_fsdp_gathers_a_unit_at_a_time(arch, monkeypatch):
+    """FSDP gathers a unit of the stack inside its recomputed block
+    (models.model._scan_stack): the census counts each stack leaf's
+    all-gather twice a unit (forward and recompute) and every other
+    leaf's once, at 2 and 4 units; zamba2's nested Mamba stack gathers at
+    its unit, its shared block once, and at 4 units three of its leaves are
+    split on the stack dim (gathered whole, once). Going from 2 to 4
+    units, olmo-1b's traced peak of temporaries grows by less than one
+    unit's gathered parameters a unit (a gather of the whole model grows
+    by two units' gathered weights and gradients a unit)."""
+    shape = _train_cell(monkeypatch, seq=16, batch=8)
+    base = get_arch(arch).reduced()
+    unit = base.hybrid_attn_every or 1
+    peaks, stack_axis = {}, {}
+    for units in (2, 4):
+        cfg = dataclasses.replace(base, n_layers=units * unit)
+        census, memory, skeleton, specs = _fsdp_trace(cfg, shape)
+        want, unit_bytes = _expected_gathers(cfg, skeleton, specs)
+        counts = comms.collective_counts(census.records)
+        assert counts["all-gather"] == want, (units, counts, want)
+        peaks[units] = memory["temp_size_in_bytes"]
+        stack_axis[units] = sum(
+            1 for path, s in _spec_leaves(specs)
+            if path.startswith(("blocks", "units")) and s[0] == "data")
+    if arch == "olmo-1b":
+        assert 0 < (peaks[4] - peaks[2]) / 2 < unit_bytes, (peaks,
+                                                           unit_bytes)
+        assert stack_axis == {2: 0, 4: 0}
+    else:
+        assert stack_axis == {2: 0, 4: 3}
+
+
+def test_whole_heads_splits_the_batch_in_training():
+    """3 heads over a model axis of 2 do not split: in training the model
+    axis splits the batch instead (each rank attends whole heads of half
+    the sequences), where the batch divides; otherwise, and outside
+    training, the heads are gathered. Heads that split pass as they
+    are."""
+    from torch.distributed.tensor import Replicate, Shard, \
+        distribute_tensor
+
+    with D.fake_world(4):
+        mesh = tmesh.make_host_mesh(model=2, device_type="cpu")
+        x = distribute_tensor(torch.zeros(4, 8, 48), mesh,
+                              [Shard(0), Shard(2)], src_data_rank=None)
+        assert shapi.whole_heads(x, 3, split_batch=True).placements == (
+            Shard(0), Shard(0))
+        assert shapi.whole_heads(x, 3).placements == (Shard(0),
+                                                      Replicate())
+        odd = distribute_tensor(torch.zeros(6, 8, 48), mesh,
+                                [Shard(0), Shard(2)], src_data_rank=None)
+        assert shapi.whole_heads(odd, 3, split_batch=True).placements == (
+            Shard(0), Replicate())
+        assert shapi.whole_heads(x, 4, split_batch=True) is x
+
+
+def test_recompute_gathers_on_autograd_thread():
+    """The backward of CUDA tensors runs on autograd's device thread, which
+    does not see the forward thread's activation context: the recomputed
+    block re-enters it (models.model._maybe_remat). Here the backward
+    runs on a thread of its own, and the census there counts the
+    recompute's gather of every FSDP stack leaf of every unit."""
+    import threading
+
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = dataclasses.replace(get_arch("olmo-1b").reduced(), n_layers=2)
+    batch = S.make_inputs(cfg, "train", 16, 8, device="cpu")
+    got = []
+    with D.fake_world(4):
+        mesh = D._mesh("host4x1", "cpu")
+        plan = D._single_pod_plan_axes(mesh, D._plan_for(cfg, fsdp=True))
+        params, axes = M.init_model(0, cfg, device="cpu")
+        params = shapi.distribute(params, mesh, shapi.param_shardings(
+            plan, mesh, params, axes))
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree.leaves(params)]
+        xs = tree.unflatten(tree.flatten(params)[1], leaves)
+        placed = {k: distribute_tensor(v, mesh, tsteps.batch_sharding(
+            mesh, plan, {k: v})[k], src_data_rank=None)
+            for k, v in batch.items()}
+        with shapi.activation_context(mesh, plan):
+            loss, _ = M.loss_fn(cfg, xs, placed)
+
+            def backward():
+                # the engine carries torch's thread state (DTensor's
+                # implicit replication) to its thread, not Python's
+                census = comms.StepCensus()
+                with implicit_replication(), census:
+                    torch.autograd.grad(loss, leaves)
+                got.append(census)
+
+            worker = threading.Thread(target=backward)
+            worker.start()
+            worker.join()
+        skeleton, axes = M._build(cfg, M._meta)
+        specs = _spec_leaves(shapi.param_specs(
+            plan, shapi.mesh_sizes(mesh), skeleton, axes))
+    stack = [s for path, s in specs if path.startswith("blocks")
+             and "data" in s]
+    assert stack and comms.collective_counts(got[0].records)[
+        "all-gather"] == len(stack) * cfg.n_layers

@@ -88,7 +88,8 @@ SPAWN_TIMEOUT_S = ranks.JOIN_TIMEOUT_S + 30.0
 B, T = 4, 16
 
 # the reference's DIST cases (tests/test_sharding.py) and the other
-# families: (arch, fsdp, microbatches, {world: model-axis size})
+# families: (arch, fsdp, microbatches, {world: model-axis size}); an
+# integer fsdp turns FSDP on with that ``fsdp_min_size``
 TRAIN = {
     "olmo": ("olmo-1b", False, 1, {2: 2, 4: 2}),
     "olmo_fsdp_mb2": ("olmo-1b", True, 2, {2: 1, 4: 2}),
@@ -97,7 +98,20 @@ TRAIN = {
     "falcon_mamba": ("falcon-mamba-7b", False, 1, {2: 1, 4: 2}),
     "whisper": ("whisper-medium", False, 1, {2: 2, 4: 2}),
     "qwen2_vl": ("qwen2-vl-2b", False, 1, {2: 1, 4: 2}),
+    # FSDP a unit at a time: the MoE unit's sub-blocks, and the hybrid's
+    # nested Mamba stack and shared block
+    "llama4_fsdp": ("llama4-maverick-400b-a17b", True, 1, {2: 1, 4: 2}),
+    "zamba2_fsdp": ("zamba2-1.2b", True, 1, {2: 1, 4: 2}),
+    # FSDP down to 64 entries a leaf: the per-layer biases, split on
+    # their stack dim, are gathered whole before the stack unbinds them
+    "whisper_fsdp_stack": ("whisper-medium", 64, 1, {2: 1, 4: 2}),
+    # 3 query heads and 1 KV head over a model axis of 2: the heads do not
+    # split, so the model axis splits the batch for the attention
+    # (sharding.api.whole_heads)
+    "llama3_odd_heads": ("llama3-405b", True, 1, {2: 2, 4: 2}),
 }
+# config fields a case sets on the reduced config, in both packages
+TRAIN_CFG = {"llama3_odd_heads": {"n_heads": 3, "n_kv_heads": 1}}
 LAUNCH_ARGV = ["--arch", "olmo-1b", "--smoke", "--steps", "2",
                "--save-every", "2", "--seq", "16", "--batch", "4",
                "--device", "cpu"]
@@ -269,6 +283,39 @@ def ranks_flat(t) -> list:
     return tshapi._placement_leaves(t)
 
 
+def _stack_axis_leaves(cfg, plan, sizes) -> list:
+    """The stacked leaves whose FSDP shard falls on their stack dim."""
+    params, axes = M._build(cfg, M._meta)
+    specs = _flat(tshapi.param_specs(plan, sizes, params, axes))
+    return [(tuple(x.shape), s) for x, a, s in zip(
+        tree.leaves(params), tshapi._axes_leaves(axes), specs)
+        if a[0] == "layers" and s[0] == plan.fsdp_axis]
+
+
+def test_which_architectures_split_a_stack_dim():
+    """FSDP picks a leaf's largest free dim, which is the stack dim for
+    the per-layer biases over a model-split width and the SSM's small
+    leaves: at the published widths of four architectures on 2 x 2 (the
+    stack gathers those leaves whole, models.model._scan_stack), at none
+    of the reduced ones."""
+    plan = tshapi.tp_plan(data_axes=("data",), fsdp=True)
+    # on 16 x 16 only falcon-mamba's 64 layers divide by the data axis
+    for sizes, want in (({"data": 2, "model": 2}, {
+            "falcon-mamba-7b", "qwen2-vl-2b", "whisper-medium",
+            "zamba2-1.2b"}), ({"data": 16, "model": 16},
+                              {"falcon-mamba-7b"})):
+        hit = {a for a in list_archs()
+               if _stack_axis_leaves(get_arch(a), plan, sizes)}
+        assert hit == want, sizes
+        assert not any(_stack_axis_leaves(get_arch(a).reduced(), plan,
+                                          sizes) for a in list_archs())
+    # the reduced whisper of TRAIN's stack case splits its biases so
+    small = dataclasses.replace(plan, fsdp_min_size=64)
+    got = _stack_axis_leaves(get_arch("whisper-medium").reduced(), small,
+                             {"data": 2, "model": 2})
+    assert got and all(s[0] == "data" for _, s in got)
+
+
 def test_constrain_is_a_no_op_without_a_context():
     x = torch.randn(2, 3, 4)
     assert tshapi.constrain(x, ("batch", "seq", "embed")) is x
@@ -312,8 +359,8 @@ def test_meshes_need_a_group():
         tmesh.make_host_mesh(device_type="cpu")
 
 
-def _ref_params(arch):
-    rc = ref_arch(arch).reduced()
+def _ref_params(arch, changes=None):
+    rc = dataclasses.replace(ref_arch(arch).reduced(), **(changes or {}))
     rp, _ = RM.init_model(jax.random.key(0), rc)
     return rc, rp
 
@@ -403,11 +450,12 @@ def test_optimizer_on_plain_leaves_keeps_its_bits():
 
 def _train_case(name):
     arch, fsdp, mb, meshes = TRAIN[name]
-    rc, rp = _ref_params(arch)
+    rc, rp = _ref_params(arch, TRAIN_CFG.get(name))
     batch = {k: np.asarray(v) for k, v in
              rshapes.make_inputs(rc, "train", seq=T, batch=B).items()}
     paths = jax.tree_util.tree_flatten_with_path(rp)[0]
     return dict(kind="train", arch=arch, fsdp=fsdp, mb=mb, meshes=meshes,
+                changes=TRAIN_CFG.get(name, {}),
                 params=[np.asarray(x) for x in jax.tree.leaves(rp)],
                 names=[".".join(str(k.key) for k in pth)
                        for pth, _ in paths],
@@ -426,6 +474,8 @@ def inputs(tmp_path_factory):
     cases["launcher"] = dict(kind="launcher", worlds=(4,), argv=LAUNCH_ARGV
                              + ["--model-parallel", "2", "--fsdp"],
                              dir=str(root / "launch"))
+    cases["place"] = dict(kind="place", archs=("olmo-1b", "zamba2-1.2b",
+                                                "llama4-maverick-400b-a17b"))
     # data = 2: the step's collectives, recorded by utils.comms
     cases["census_olmo"] = dict(olmo, worlds=(2,), meshes={2: 1},
                                 census=True)
@@ -488,19 +538,21 @@ def ref_steps(inputs):
     out = {}
     for name in TRAIN:
         case = inp["cases"][f"train_{name}"]
-        rc = ref_arch(case["arch"]).reduced()
+        rc = dataclasses.replace(ref_arch(case["arch"]).reduced(),
+                                 **case["changes"])
         rp = jax.tree.unflatten(
             jax.tree.structure(RM.init_model(jax.random.key(0), rc)[0]),
             [jnp.asarray(x) for x in case["params"]])
         plan = rshapi.tp_plan(data_axes=("data",), model_axis="model",
-                              fsdp=case["fsdp"])
+                              fsdp=bool(case["fsdp"]))
         ropt = RAdamW(lr=r_warmup_cosine(1e-2, 1, 10), eps=1e-3)
         step = jax.jit(rsteps.build_train_step(rc, mesh, plan, ropt,
                                                microbatches=case["mb"]))
         rb = {k: jnp.asarray(v) for k, v in case["batch"].items()}
         with mesh:
             p2, s2, m = step(rp, ropt.init(rp), rb)
-        cfg = get_arch(case["arch"]).reduced()
+        cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                                  **case["changes"])
         opt = AdamW(lr=warmup_cosine(1e-2, 1, 10), eps=1e-3)
         tp = convert.params_from_numpy(cfg, case["params"], device="cpu")
         tp, ts, tm = tsteps.build_train_step(
@@ -541,7 +593,8 @@ def test_train_step_matches_reference(spawned, ref_steps, inputs, world,
     # replicates every parameter)
     _, fsdp, _, meshes = TRAIN[name]
     split = any("Shard" in p for p in res[0]["placements"])
-    assert split == (fsdp or meshes[world] > 1), (name, res[0]["placements"])
+    assert split == (bool(fsdp) or meshes[world] > 1), \
+        (name, res[0]["placements"])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -575,6 +628,19 @@ def test_compressed_psum_matches_reference(spawned, world):
         _close([r["data_out"], r["data_res"]], [out_d, res_d[rank]], 1e-6,
                "data axis")
     assert len(members) == world // 2
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_init_places_each_leaf_as_drawn(spawned, world):
+    """``init_model(place=leaf_placer(...))`` under FSDP and a model axis
+    gives each rank the shards, placements and bits of ``distribute`` over
+    the whole draw, holding at most one whole leaf at a time."""
+    for r in spawned(world):
+        got = r["place"]
+        assert set(got) == {"olmo-1b", "zamba2-1.2b",
+                            "llama4-maverick-400b-a17b"}
+        for arch, res in got.items():
+            assert res["same"] and res["sharded"] > 0, (arch, res)
 
 
 def test_elastic_restore(spawned, inputs):

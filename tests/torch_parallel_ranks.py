@@ -16,6 +16,8 @@ Cases: ``train_<name>``, one step of a reduced architecture under
 ``tp_plan`` (the mesh and the plan are the input's ``meshes[world]``;
 with ``census`` set, the step runs under ``utils.comms.StepCensus`` and
 the rank returns its collectives' bytes and counts);
+``place``, ``init_model`` drawing leaf by leaf through ``leaf_placer``
+against ``distribute`` of the whole draw;
 ``compress``, ``compressed_psum`` over the whole group and over a mesh
 dimension; ``restore``, elastic restore (world 2 saves after one step
 under model = 2 and steps on; world 4 restores that checkpoint under
@@ -74,12 +76,18 @@ def _placed_state(cfg, leaves, mesh, plan, opt):
 
 
 def _mesh_plan(world, model, fsdp):
+    """The host mesh and ``tp_plan``; an integer ``fsdp`` (not a bool)
+    turns FSDP on with that ``fsdp_min_size``."""
+    import dataclasses
+
     from repro_torch.launch import make_host_mesh
     from repro_torch.sharding import api as shapi
 
-    return (make_host_mesh(model=model, device_type="cpu"),
-            shapi.tp_plan(data_axes=("data",), model_axis="model",
-                          fsdp=fsdp))
+    plan = shapi.tp_plan(data_axes=("data",), model_axis="model",
+                         fsdp=bool(fsdp))
+    if type(fsdp) is int:
+        plan = dataclasses.replace(plan, fsdp_min_size=fsdp)
+    return make_host_mesh(model=model, device_type="cpu"), plan
 
 
 def _batch(arrays: dict) -> dict:
@@ -87,11 +95,14 @@ def _batch(arrays: dict) -> dict:
 
 
 def case_train(inp, world, rank, case):
+    import dataclasses
+
     from repro_torch import tree
     from repro_torch.configs import get_arch
     from repro_torch.launch import steps
 
-    cfg = get_arch(case["arch"]).reduced()
+    cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                              **case.get("changes", {}))
     mesh, plan = _mesh_plan(world, case["meshes"][world], case["fsdp"])
     opt = _optimizer()
     params, state, _ = _placed_state(cfg, case["params"], mesh, plan, opt)
@@ -115,6 +126,36 @@ def case_train(inp, world, rank, case):
         out["collectives"] = {"bytes": comms.collective_bytes(
             census.records), "counts": comms.collective_counts(
             census.records), "flops": census.flops}
+    return out
+
+
+def case_place(inp, world, rank, case):
+    """Each arch of ``case["archs"]`` (reduced) drawn leaf by leaf through
+    ``leaf_placer`` under data x model with FSDP, against the whole draw
+    distributed afterwards: the same placements and local bits."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.sharding import api as shapi
+
+    mesh, plan = _mesh_plan(world, 2, True)
+    out = {}
+    for arch in case["archs"]:
+        cfg = get_arch(arch).reduced()
+        whole, axes = M.init_model(0, cfg, device="cpu")
+        want = shapi.distribute(whole, mesh, shapi.param_shardings(
+            plan, mesh, whole, axes))
+        got, _ = M.init_model(0, cfg, device="cpu",
+                              place=shapi.leaf_placer(plan, mesh))
+        pairs = list(zip(tree.leaves(got), tree.leaves(want)))
+        out[arch] = {
+            "same": len(pairs) == len(tree.leaves(whole)) and all(
+                tuple(g.placements) == tuple(w.placements)
+                and g.shape == w.shape
+                and torch.equal(g.to_local(), w.to_local())
+                for g, w in pairs),
+            "sharded": sum(1 for g, _ in pairs if any(
+                p.is_shard() for p in g.placements))}
     return out
 
 
@@ -200,7 +241,8 @@ def case_launcher(inp, world, rank, case):
     return {"losses": list(res.losses)}
 
 
-CASES = {"train": case_train, "compress": case_compress,
+CASES = {"train": case_train, "place": case_place,
+         "compress": case_compress,
          "restore": case_restore, "launcher": case_launcher}
 
 
