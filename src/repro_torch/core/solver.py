@@ -14,6 +14,16 @@ and then makes exactly one device-to-host read, ``needs_more.any()``,
 to decide whether another round is needed. Lanes that are done are
 frozen bit-exactly (``loop_utils.tree_freeze``).
 
+The loop is traced from inside through ``repro_torch.obs``: spans
+``solver.solve`` (one ``solve`` / ``solve_batch``), ``solver.init``,
+``solver.round`` (a round's steps, its ``needs_more`` and its read),
+``solver.read`` (the read; the one before the first round sits under
+``solver.solve``) and ``solver.finalize``; counters ``solver.rounds``,
+``solver.reads`` and ``solver.lane_steps`` (``decide_every`` times the
+lane count a round: the lane-steps the device computes, frozen lanes
+included). They are host-side only: no span synchronises the device, so
+the read stays a round's one sync.
+
 The solver computes on the device of the operator it is given, and
 raises if the query lies on another device. ``backend='pallas'`` routes
 the recurrence through kernel K1 and SparseBELL matvecs through K2;
@@ -34,10 +44,14 @@ split the lanes over the ranks of a lane mesh (core/sharded.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..obs import metrics as _metrics
+from ..obs.spans import span as _span
 from . import block as _block
 from . import gql as _gql
 from . import matfun as _matfun
@@ -51,6 +65,10 @@ _SPECTRA = ("explicit", "gershgorin", "lanczos", "ridge")
 _PRECONDITIONS = ("none", "jacobi")
 _BACKENDS = ("reference", "pallas", "fused")
 _FNS = tuple(_matfun.REGISTRY)
+
+_ROUNDS = _metrics.counter("solver.rounds")
+_READS = _metrics.counter("solver.reads")
+_LANE_STEPS = _metrics.counter("solver.lane_steps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +292,44 @@ def _first_argmax(x: Tensor) -> Tensor:
     return torch.argmax(x, dim=-1)
 
 
+def _traced(name: str):
+    """Run the decorated method inside a ``name`` span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with _span(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def _read(nm: Tensor) -> bool:
+    """A host loop's device-to-host read, ``nm.any()``: a ``solver.read``
+    span, counted in ``solver.reads``."""
+    with _span("solver.read"):
+        more = bool(nm.any())
+    _READS.inc()
+    return more
+
+
+def _rounds(advance, carry: tuple, lane_steps: int, limit=None) -> tuple:
+    """The host loop over decision rounds. ``carry[-1]`` is the lanes'
+    needs-more mask; while its read finds a lane that needs more,
+    ``carry = advance(carry)`` runs one round, which ends with the next
+    mask, read inside the round's ``solver.round`` span. Each round adds 1
+    to ``solver.rounds`` and ``lane_steps`` to ``solver.lane_steps``. The
+    round that reaches ``limit`` rounds makes no read."""
+    more, taken = _read(carry[-1]), 0
+    while more:
+        with _span("solver.round"):
+            carry = advance(carry)
+            taken += 1
+            _ROUNDS.inc()
+            _LANE_STEPS.inc(lane_steps)
+            more = (limit is None or taken < limit) and _read(carry[-1])
+    return carry
+
+
 @dataclasses.dataclass(frozen=True)
 class BIFSolver:
     """One retrospective quadrature driver; see the module docstring."""
@@ -453,6 +509,7 @@ class BIFSolver:
                                   st1.lz.v.unsqueeze(-2))
         return st1, basis1, coeffs
 
+    @_traced("solver.init")
     def init_state(self, op, u: Tensor, *, lam_min=None, lam_max=None,
                    probe=None, basis_rows: int | None = None,
                    coeff_rows: int | None = None) -> QuadState:
@@ -525,13 +582,24 @@ class BIFSolver:
         return round_fn
 
     def _loop_parts(self, state: QuadState, decide, it_cap):
+        """``_rounds``' first arguments ``(advance, carry, lane_steps)``:
+        one round with the next mask, the carry ``(st, basis, coeffs,
+        step, needs_more)`` of ``state``, and the lane-steps a round
+        computes."""
         needs_more, _ = self._needs_more_fn(decide, it_cap,
                                             lam_min=state.lam_min,
                                             lam_max=state.lam_max)
         round_fn = self._round_body(state.op, state.lam_min, state.lam_max,
                                     self._stepper(),
                                     self._local_ok_fn(it_cap))
-        return needs_more, round_fn
+
+        def advance(carry):
+            st, basis, coeffs, step, _ = round_fn(carry)
+            return st, basis, coeffs, step, needs_more(st, coeffs)
+
+        nm = needs_more(state.st, state.coeffs)
+        carry = (state.st, state.basis, state.coeffs, state.step, nm)
+        return advance, carry, self.config.decide_every * nm.numel()
 
     def step_n(self, state: QuadState, n: int, decide=None, *,
                it_cap=None, convergence_log=None) -> QuadState:
@@ -551,16 +619,8 @@ class BIFSolver:
         rounds = n // self.config.decide_every
         if rounds == 0:
             return state
-        needs_more, round_fn = self._loop_parts(state, decide, it_cap)
-        st, basis, coeffs, step = (state.st, state.basis, state.coeffs,
-                                   state.step)
-        nm = needs_more(st, coeffs)
-        taken = 0
-        while taken < rounds and bool(nm.any()):  # one host read per round
-            st, basis, coeffs, step, _ = round_fn((st, basis, coeffs, step,
-                                                   nm))
-            nm = needs_more(st, coeffs)
-            taken += 1
+        st, basis, coeffs, step, _ = _rounds(
+            *self._loop_parts(state, decide, it_cap), limit=rounds)
         out = state._replace(st=st, basis=basis, coeffs=coeffs, step=step)
         if convergence_log is not None:
             convergence_log.record_state(out)
@@ -573,14 +633,8 @@ class BIFSolver:
         the history / ``it_cap``), freezing resolved lanes bit-exactly.
         One ``needs_more.any()`` host read per round of ``decide_every``
         steps."""
-        needs_more, round_fn = self._loop_parts(state, decide, it_cap)
-        st, basis, coeffs, step = (state.st, state.basis, state.coeffs,
-                                   state.step)
-        nm = needs_more(st, coeffs)
-        while bool(nm.any()):  # the round's one device-to-host read
-            st, basis, coeffs, step, _ = round_fn((st, basis, coeffs, step,
-                                                   nm))
-            nm = needs_more(st, coeffs)
+        st, basis, coeffs, step, _ = _rounds(
+            *self._loop_parts(state, decide, it_cap))
         return state._replace(st=st, basis=basis, coeffs=coeffs, step=step)
 
     def resume_chunked(self, state: QuadState, decide=None, *,
@@ -596,10 +650,11 @@ class BIFSolver:
         needs_more, _ = self._needs_more_fn(decide, it_cap,
                                             lam_min=state.lam_min,
                                             lam_max=state.lam_max)
-        while bool(needs_more(state.st, state.coeffs).any()):
+        while _read(needs_more(state.st, state.coeffs)):
             state = self.step_n(state, chunk_iters, decide, it_cap=it_cap)
         return state
 
+    @_traced("solver.finalize")
     def finalize(self, state: QuadState, decide=None) -> SolveResult:
         """Read a :class:`SolveResult` off a (partial or completed) state;
         ``certified`` re-evaluates ``decide`` on the banked bracket. For
@@ -646,10 +701,14 @@ class BIFSolver:
         """Retrospective solve for ``u^T A^-1 u``: iterate quadrature until
         ``decide(lower, upper)`` is True on every lane (or exhaustion);
         ``decide=None`` brackets to ``rtol``/``atol``."""
-        state = self.init_state(op, u, lam_min=lam_min, lam_max=lam_max,
-                                probe=probe)
-        state = self.resume(state, decide)
-        return self.finalize(state, decide)
+        cfg = self.config
+        lanes = math.prod(u.shape[:-2 if cfg.block_size > 1 else -1])
+        with _span("solver.solve", lanes=lanes, backend=cfg.backend,
+                   decide_every=cfg.decide_every):
+            state = self.init_state(op, u, lam_min=lam_min, lam_max=lam_max,
+                                    probe=probe)
+            state = self.resume(state, decide)
+            return self.finalize(state, decide)
 
     def trace(self, op, u: Tensor, num_iters: int, *, lam_min=None,
               lam_max=None, probe=None,
@@ -955,8 +1014,8 @@ class BIFSolver:
         def needs_more(st):
             return ~resolved(st) & ~exhausted(st)
 
-        nm = needs_more(st)
-        while bool(nm.any()):
+        def advance(carry):
+            st, nm = carry
             pick = pick_a(st)
             pick = (pick & ~st.a.done & (st.a.it < max_iters)) | \
                 (st.b.done | (st.b.it >= max_iters))
@@ -964,7 +1023,11 @@ class BIFSolver:
             b1 = stepfn(op_b, st.b, lam_min, lam_max, None)
             st = PairState(a=tree_freeze(a1, st.a, ~(nm & pick)),
                            b=tree_freeze(b1, st.b, ~(nm & ~pick)))
-            nm = needs_more(st)
+            return st, needs_more(st)
+
+        nm = needs_more(st)
+        # both systems of every lane step each round
+        st, _ = _rounds(advance, (st, nm), 2 * nm.numel())
         return st
 
     def judge_kdpp_swap(self, op_a, u: Tensor, op_b, v: Tensor, t, p, *,

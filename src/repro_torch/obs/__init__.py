@@ -10,7 +10,9 @@ stack:
     (load a dump in https://ui.perfetto.dev), with an explicit
     ``block_until_ready`` hook (``torch.cuda.synchronize`` while the span
     is live) so asynchronous device work is attributed to the span that
-    launched it.
+    launched it; while ``torch.profiler`` records, a live span is also a
+    ``record_function`` range on the profiler's clock. The solver's host
+    loop (``core/solver.py``) records ``solver.*`` spans and counters.
 ``obs.registry``
     the driver-signature registry every engine driver in ``serve/``
     reports through (``registry.count("name")`` the first time a driver

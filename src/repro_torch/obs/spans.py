@@ -6,7 +6,15 @@ completed spans accumulate as Chrome-trace "complete" events ("ph": "X",
 microsecond ts/dur) and :func:`dump_trace` writes the standard JSON
 object wrapper; load it in https://ui.perfetto.dev or chrome://tracing.
 Nesting is by timestamp containment per thread, which is exactly how the
-trace viewers reconstruct the flame graph.
+trace viewers reconstruct the flame graph; each event also names its
+parent span in ``args.parent`` (None at the top).
+
+ONE CLOCK WITH THE DEVICE TRACE: while ``torch.profiler`` records, a live
+span also enters ``torch.profiler.record_function(name)``, so the
+profiler stamps the span on the clock of its kernels and operators, and
+a device idle gap can be put under the span the host was in. With no
+profiler recording nothing is entered (``record_function`` costs about
+10 us even then).
 
 THE ATTRIBUTION CAVEAT: CUDA launches are asynchronous. A span that only
 wraps the call that LAUNCHES device work closes long before the card
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 
@@ -52,7 +61,8 @@ def enabled() -> bool:
 class Span:
     """One timed region; use via the :func:`span` context manager."""
 
-    __slots__ = ("name", "args", "_t0", "_depth", "_live")
+    __slots__ = ("name", "args", "_t0", "_depth", "_live", "_parent",
+                 "_range")
 
     def __init__(self, name: str, **args):
         self.name = name
@@ -60,6 +70,8 @@ class Span:
         self._t0 = 0.0
         self._depth = 0
         self._live = False
+        self._parent = None
+        self._range = None
 
     def __enter__(self) -> "Span":
         if _ENABLED[0]:
@@ -68,7 +80,9 @@ class Span:
             if stack is None:
                 stack = _TLS.stack = []
             self._depth = len(stack)
+            self._parent = stack[-1].name if stack else None
             stack.append(self)
+            self._range = _profiler_range(self.name)
             self._t0 = time.monotonic()
         return self
 
@@ -76,10 +90,14 @@ class Span:
         if not self._live:
             return
         t1 = time.monotonic()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         _TLS.stack.pop()
         self._live = False
         args = dict(self.args)
         args["depth"] = self._depth
+        args["parent"] = self._parent
         if exc_type is not None:
             args["error"] = exc_type.__name__
         event = {
@@ -110,6 +128,18 @@ class Span:
                 for dev in sorted(devices, key=str):
                     torch.cuda.synchronize(dev)
         return value
+
+
+def _profiler_range(name: str):
+    """``torch.profiler.record_function(name)``, entered, while a profiler
+    records; else None. A process that has not imported torch runs no
+    profiler, so this module still imports none."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def _cuda_devices(value, out: set) -> None:

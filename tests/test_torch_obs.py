@@ -513,3 +513,126 @@ def test_obs_smoke_runs_on_the_cpu(tmp_path):
     stats = json.loads((tmp_path / "metrics.json").read_text())
     assert stats["counters"]["requests.retired"] == 6
     assert smoke.main([str(tmp_path), "--device", "tpu"]) == 2
+
+
+# -- 8. the solver's decision rounds, traced from inside --------------------
+
+SOLVER_SPANS = {"solver.solve", "solver.init", "solver.round", "solver.read",
+                "solver.finalize"}
+
+
+def _rounds_problem(n=24, lanes=3, seed=11, kappa=50.0):
+    a = make_spd(n, kappa=kappa, seed=seed)
+    us = torch.tensor(np.random.default_rng(seed + 1)
+                      .standard_normal((lanes, n)))
+    return T.Dense(torch.tensor(a)), us, dict(lam_min=0.999 / kappa,
+                                              lam_max=1.001)
+
+
+def _solver_counts() -> dict:
+    c = obs.metrics.snapshot()["counters"]
+    return {k: c.get(f"solver.{k}", 0)
+            for k in ("rounds", "reads", "lane_steps")}
+
+
+def _delta(before: dict) -> dict:
+    after = _solver_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+def test_solver_results_bit_identical_with_spans_on_and_off(backend):
+    op, us, iv = _rounds_problem()
+    sv = T.BIFSolver.create(max_iters=24, rtol=1e-6, backend=backend,
+                            reorth=backend == "fused", decide_every=2)
+    off = sv.solve_batch(op, us, **iv)
+    obs.spans.set_enabled(True)
+    on = sv.solve_batch(op, us, **iv)
+    assert {e["name"] for e in obs.trace_events()} == SOLVER_SPANS
+    for f in ("lower", "upper", "iterations", "certified"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), (backend, f)
+
+
+def test_solve_batch_emits_one_solve_span_with_its_rounds_and_reads():
+    op, us, iv = _rounds_problem()
+    sv = T.BIFSolver.create(max_iters=24, rtol=1e-6, backend="fused",
+                            decide_every=2)
+    obs.spans.set_enabled(True)
+    before = _solver_counts()
+    res = sv.solve_batch(op, us, **iv)
+    d = _delta(before)
+    events = obs.trace_events()
+    n = d["rounds"]
+    assert n >= 2 and int(res.iterations.max()) <= 1 + 2 * n
+    # close order: the init, the read before the first round, then each
+    # round after the read it holds, the finalize, and the solve itself
+    assert [e["name"] for e in events] == \
+        ["solver.init", "solver.read"] + ["solver.read", "solver.round"] * n \
+        + ["solver.finalize", "solver.solve"]
+    assert [e["args"]["parent"] for e in events] == \
+        ["solver.solve"] * 2 + ["solver.round", "solver.solve"] * n \
+        + ["solver.solve", None]
+    solve = events[-1]
+    assert {k: solve["args"][k] for k in ("lanes", "backend",
+                                          "decide_every")} == \
+        {"lanes": 3, "backend": "fused", "decide_every": 2}
+    for read, rnd in zip(events[2:-2:2], events[3:-2:2]):
+        assert rnd["ts"] <= read["ts"]
+        assert read["ts"] + read["dur"] <= rnd["ts"] + rnd["dur"] + 1e-3
+    assert d == {"rounds": n, "reads": n + 1, "lane_steps": 2 * 3 * n}
+
+
+def test_solver_counters_count_rounds_reads_and_lane_steps():
+    op, us, iv = _rounds_problem()
+    sv = T.BIFSolver.create(max_iters=24, rtol=1e-6, decide_every=2)
+    st0 = sv.init_state(op, us, **iv)
+    before = _solver_counts()
+    sv.resume(st0)
+    d = _delta(before)
+    assert d["rounds"] >= 2
+    assert d == {"rounds": d["rounds"], "reads": d["rounds"] + 1,
+                 "lane_steps": 2 * 3 * d["rounds"]}
+    # a step_n that stops at its limit makes no read after its last round
+    before = _solver_counts()
+    sv.step_n(st0, 5)
+    assert _delta(before) == {"rounds": 2, "reads": 2, "lane_steps": 12}
+    # the pair loop steps both systems of its one lane each round
+    pair = T.BIFSolver.create(max_iters=24)
+    before = _solver_counts()
+    pair.judge_kdpp_swap(op, us[0], op, us[1], 0.0, 1.0, **iv)
+    d = _delta(before)
+    assert d["rounds"] >= 1
+    assert d == {"rounds": d["rounds"], "reads": d["rounds"] + 1,
+                 "lane_steps": 2 * d["rounds"]}
+    # metrics off: nothing counted
+    obs.metrics.set_enabled(False)
+    before = _solver_counts()
+    sv.resume(st0)
+    assert _delta(before) == {"rounds": 0, "reads": 0, "lane_steps": 0}
+
+
+def test_spans_enter_record_function_only_while_a_profiler_records(
+        monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+    entered = []
+
+    class Spy(torch.profiler.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "record_function", Spy)
+    op, us, iv = _rounds_problem()
+    sv = T.BIFSolver.create(max_iters=24, rtol=1e-6, decide_every=2)
+    obs.spans.set_enabled(True)
+    sv.solve_batch(op, us, **iv)
+    assert entered == []
+    obs.spans.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sv.solve_batch(op, us, **iv)
+    spans = obs.trace_events()
+    assert sorted(entered) == sorted(e["name"] for e in spans)
+    # the profiler holds each span as a user annotation, on its clock
+    marked = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.name() in SOLVER_SPANS]
+    assert sorted(marked) == sorted(entered)
