@@ -23,7 +23,9 @@ It runs every phase, in order, each printing one JSON line:
                  and K4
                  on the tiled route and K5 on the wgmma route, with the
                  same bits from two launches (the sparse and trace phases
-                 assert that every K2, K4 and K5 launch took it); K6 one
+                 assert that every K2, K4 and K5 launch took it); K4's
+                 rows route on the GMRF benchmark cell's table at 4096
+                 lanes, every launch on it, with the same bits twice; K6 one
                  device kernel a call, with the same bits twice; K3 also
                  on a mid-solve state with its live-row count (the bound
                  counts the live rows), with its matvec and tail launches
@@ -339,6 +341,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -2615,6 +2618,103 @@ class Smoke:
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
+    def _k4_rows_line(self):
+        """K4's rows route at the GMRF cell's shapes: the benchmark's
+        table (``quadbench/problems.py`` on ``grqc-laplacian-5242``: a
+        rewired ring of 5242 nodes, 41 x 31 blocks of 128, about 608 stored
+        values per non-zero) under 4096 lanes of f64 queries, with K4's
+        operands as the fused solver hands them over three steps in (s_out,
+        s_in and t padded to R*bs rows a lane). Every K4 launch of those
+        steps and of the line must take ``bell_rows``; the line holds it to
+        the plain version and gives its time beside two bounds: its inputs
+        and outputs as handed over, and the cell's reckoning
+        (``quadbench/reckon.py``: the non-zeros once, v, v_prev and r a
+        lane)."""
+        from quadbench import problems, reckon
+        from repro_torch.core import BIFSolver, SparseBELL
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.kernels import lanczos_step as ls
+        from repro_torch.kernels import ops
+
+        lanes = 4096
+        cfg = json.loads((Path(__file__).resolve().parent / "quadbench"
+                          / "configs" / "grqc-laplacian-5242.json")
+                         .read_text())
+        p = problems.build(cfg, self.dev)
+        op = SparseBELL(p["data"], p["cols"], p["diag"], p["n"])
+        u = torch.randn((lanes, p["n"]), dtype=torch.float64,
+                        device=self.dev, generator=torch.Generator(
+                            device=self.dev).manual_seed(SEED + 5))
+        solver = BIFSolver.create(backend="fused", **SPARSE)
+        seen, real = [], ops.fused_step_bell
+
+        def spy(*args):
+            seen.append(args)
+            return real(*args)
+
+        def counts():
+            return LAUNCHES["fused_step_bell"], ls.ROUTES["bell_rows"]
+
+        before = counts()
+        ops.fused_step_bell = spy
+        try:
+            solver.step_n(solver.init_state(op, u, lam_min=p["lmn"],
+                                            lam_max=p["lmx"]), 3)
+        finally:
+            ops.fused_step_bell = real
+        steps = len(seen)
+        args = seen.pop()
+        seen.clear()
+        got = flatten_out(ops.fused_step_bell(*args))
+        same = all(torch.equal(x, y) for x, y in zip(
+            flatten_out(ops.fused_step_bell(*args)), got))
+        launched = [b - a for a, b in zip(before, counts())]
+        assert steps > 0 and launched == [steps + 2] * 2, \
+            f"K4 off the rows route at the GMRF shapes: {launched}"
+        assert same, "K4 rows: two launches differ"
+        want = flatten_out(ls.fused_step_bell_plain(*args))
+        e_abs, e_rel = errors(got, want)
+        del want
+        data, cols = args[0], args[1]
+        rows = ls.bell_route(data, cols, torch.float64, torch.cuda
+                             .get_device_properties(self.dev)
+                             .shared_memory_per_block_optin)[1]
+        nnz, n = rows.col.numel(), data.shape[0] * data.shape[2]
+        bms, bby = bound(nbytes(*rows, *args[2:7], *args[7]) + nbytes(*got),
+                         2 * lanes * nnz + 10 * lanes * n, torch.float64)
+        cell_ms = bound(*reckon.fused_bell_launch(lanes, n=p["n"], nnz=nnz),
+                        torch.float64)[0]
+        # the library's SpMV in f64 over the same non-zeros (CSR @ dense,
+        # the matvec only)
+        with warnings.catch_warnings():   # sparse CSR is a beta API
+            warnings.simplefilter("ignore")
+            csr = torch.sparse_csr_tensor(
+                rows.row_ptr.long(), rows.col.long(), rows.val.double(),
+                size=(n, n))
+        xt = (args[3] * args[5]).T.contiguous()
+
+        def k4():
+            return ops.fused_step_bell(*args)
+
+        emit({"phase": "kernels", "name": "fused_step_bell[rows]",
+              "shapes": {"data": list(data.shape), "lanes": lanes,
+                         "nnz": nnz, "stored_per_nnz": data.numel() / nnz},
+              "max_abs_err": e_abs, "max_rel_err": e_rel,
+              "tolerance": 1e-12,
+              "reason": "f64 vectors, f32 data cast to f64; summation "
+                        "order, FMA",
+              "kernel_ms": graph_ms(k4),
+              "plain_ms": cuda_ms(lambda: ls.fused_step_bell_plain(*args),
+                                  reps=3, warmup=1),
+              "library_ms": cuda_ms(lambda: torch.matmul(csr, xt)),
+              "library_covers": "the SpMV (CSR @ dense in f64, 4096 "
+                                "right-hand sides)",
+              "bound_ms": bms, "bound_by": bby, "cell_bound_ms": cell_ms,
+              "route": "bell_rows", "launches": launched[0],
+              "same_bits": same, "wrapper_ms": cuda_ms(k4),
+              "per_launch_ms": per_launch_ms(k4)})
+        assert e_rel <= 1e-12, f"K4 rows: rel err {e_rel}"
+
     def phase_kernels(self):
         from repro_torch.core import BIFSolver, Masked, stack_masks
         from repro_torch.core.operators import fused_operands
@@ -2831,6 +2931,7 @@ class Smoke:
                    "splits": ls.bell_splits(K, nr, bs, kb, sms),
                    "same_bits": k4_same, "wrapper_ms": cuda_ms(k4),
                    "per_launch_ms": per_launch_ms(k4)})
+        self._k4_rows_line()
         # K5 on the block path's operands: the shared table and 64 block
         # lanes of 8 probe rows (f64, as the block recurrence hands them
         # over; the wrapper rounds them to f32 once)

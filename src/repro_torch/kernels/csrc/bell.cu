@@ -48,6 +48,25 @@
 // (zero data, column 0) add zeros like any stored zero; ragged lanes, rows
 // and depth (bs not a multiple of the tile) are masked.
 //
+// Rows route (K4 only: a shared table with f64 vectors whose stored values
+// per non-zero pass spmv_bell.ROWS_FILL): the block tile's work follows the
+// stored values, and a table filled by scattered edges stores hundreds per
+// non-zero (a rewired ring of 5242 nodes: 20.8 M for 34,232, so a 4096-lane
+// step is 170 GFLOP, 2.5 ms at the full 67 TFLOP/s, where its bytes take
+// 0.15 ms). This route walks the table's row list (spmv_bell.bell_row_list:
+// row pointers, ascending int32 columns, values in the table's dtype) and
+// bounds on the lane vectors' bytes: v and s_in read once, the scratch
+// written once, the list (8 bytes a non-zero) read from L2 once per CTA. A
+// CTA of 1024 threads owns a pair of lanes (a table whose two lanes' rows
+// do not fit in shared memory stays on the block tile): it stages s_in * v
+// for them into shared memory, interleaved [row][2] (16-byte loads where n
+// is even and the rows aligned), then each thread takes rows and walks each
+// row's entries in the list's order, two f64 sums by FMA with the value
+// widened as it is read. The pair and the thread count were chosen by
+// timing 1, 2 and 4 lanes a CTA and 256, 512, 1024 threads on the card
+// (PERF.md keeps the sweep). One fixed order, no
+// atomics: two launches give the same bits.
+//
 // Lane route (a per-lane table, stack_ops of BELL operators): no table is
 // shared, so there is nothing to reuse across lanes; one CTA per (block
 // row, lane), 128 threads, each warp reading rows of the block side by
@@ -429,6 +448,111 @@ cudaError_t launch_dmma(TileArgs<TD, double> a, long long nr, long long splits,
 }
 
 // ---------------------------------------------------------------------------
+// rows route: a shared table walked by its row list (K4, f64 vectors)
+
+constexpr int kRowThreads = 1024;
+constexpr int kRowLanes = 2;  // lanes a CTA, staged as one 16-byte pair a row
+
+template <typename TD>
+struct RowArgs {
+  const int* row_ptr;  // (n + 1,)
+  const int* col;      // (nnz,), ascending within a row
+  const TD* val;       // (nnz,)
+  const double* x;     // (lanes, n)
+  const double* s_in;  // one scalar, or rows of lane stride si_ls (0 or n)
+  long long si_ls;
+  double* out;         // (lanes, n)
+  long long lanes, n;
+  int vec16;           // 16-byte staging loads
+};
+
+// kScale: 1 one scalar s_in, 2 staged rows
+template <typename TD, int kScale>
+__global__ void __launch_bounds__(kRowThreads) rows_bell_fma_kernel(RowArgs<TD> a) {
+  constexpr int G = kRowLanes;
+  extern __shared__ __align__(16) unsigned char bell_smem[];
+  double* xs = reinterpret_cast<double*>(bell_smem);  // (n, G)
+  const long long lane0 = (long long)blockIdx.x * G;
+  const int lanes_in = (int)(a.lanes - lane0 < G ? a.lanes - lane0 : G);
+  const double sc = kScale == 1 ? a.s_in[0] : 1.0;
+
+  // stage s_in * v, a lane past the last as zeros
+  if (a.vec16) {
+    for (long long e = threadIdx.x; 2 * e < a.n; e += kRowThreads) {
+      double t[2 * G];  // row 2e's G lanes, then row 2e + 1's
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        double2 v = make_double2(0.0, 0.0);
+        if (g < lanes_in) {
+          v = *reinterpret_cast<const double2*>(a.x + (lane0 + g) * a.n + 2 * e);
+          if constexpr (kScale == 1) {
+            v.x = sc * v.x;
+            v.y = sc * v.y;
+          } else {
+            const double2 s =
+                *reinterpret_cast<const double2*>(a.s_in + (lane0 + g) * a.si_ls + 2 * e);
+            v.x = s.x * v.x;
+            v.y = s.y * v.y;
+          }
+        }
+        t[g] = v.x;
+        t[G + g] = v.y;
+      }
+#pragma unroll
+      for (int q = 0; q < 2 * G; q += 2)
+        *reinterpret_cast<double2*>(xs + 2 * e * G + q) = make_double2(t[q], t[q + 1]);
+    }
+  } else {
+    for (long long e = threadIdx.x; e < a.n * G; e += kRowThreads) {
+      const long long i = e / G;
+      const int g = (int)(e % G);
+      double v = 0.0;
+      if (g < lanes_in) {
+        v = a.x[(lane0 + g) * a.n + i];
+        v = kScale == 1 ? sc * v : a.s_in[(lane0 + g) * a.si_ls + i] * v;
+      }
+      xs[e] = v;
+    }
+  }
+  __syncthreads();
+
+  for (long long i = threadIdx.x; i < a.n; i += kRowThreads) {
+    double acc0 = 0.0, acc1 = 0.0;
+    const int j_hi = a.row_ptr[i + 1];
+#pragma unroll 4
+    for (int j = a.row_ptr[i]; j < j_hi; ++j) {
+      const double w = (double)a.val[j];
+      const double2 xv = *reinterpret_cast<const double2*>(xs + (long long)a.col[j] * G);
+      acc0 = fma(w, xv.x, acc0);
+      acc1 = fma(w, xv.y, acc1);
+    }
+    a.out[lane0 * a.n + i] = acc0;
+    if (lanes_in > 1) a.out[(lane0 + 1) * a.n + i] = acc1;
+  }
+}
+
+// One CTA a pair of lanes, with 2 * n doubles of shared memory.
+template <typename TD, int kScale>
+cudaError_t launch_rows(RowArgs<TD> a, cudaStream_t s) {
+  static bool configured = false;  // the attribute is per kernel, set once
+  auto kernel = rows_bell_fma_kernel<TD, kScale>;
+  if (!configured) {
+    int dev = 0, most = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const long long pairs = (a.lanes + kRowLanes - 1) / kRowLanes;
+  if (pairs > 2147483647LL) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)pairs, kRowThreads, (size_t)a.n * kRowLanes * sizeof(double), s>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // lane route: a per-lane table
 
 constexpr int kLaneThreads = 128;
@@ -502,19 +626,23 @@ int bell_matvec(const void* const* ins, void* const* outs, const long long* dims
   return (int)cudaGetLastError();
 }
 
-// ins:  data, cols, s_out, s_in, t, v, v_prev, 8 scalars (K,)
+// ins:  data, cols, s_out, s_in, t, v, v_prev, 8 scalars (K,), and for the
+//       rows route the row list: row_ptr, col, val
 // outs: alpha, beta, r, 8 raw, acc scratch (splits, K, n)
 // dims: lanes, R, Kb, bs, data_ls, cols_ls, so_ls, so_es, si_ls, si_es, t_ls, t_es,
-//       tiled (the route), splits (tiled f64 only; else 1), vec16
-// The tiled route takes s_in as one scalar (si_ls = si_es = 0) or as rows
-// (si_es = 1, si_ls = 0 for one shared row or n for a row a lane).
+//       tiled (the route), splits (tiled f64 only; else 1), vec16,
+//       rows (the rows route, within tiled), rows_vec16 (16-byte staging of
+//       v and s_in)
+// The tiled and rows routes take s_in as one scalar (si_ls = si_es = 0) or
+// as rows (si_es = 1, si_ls = 0 for one shared row or n for a row a lane).
 template <typename TD, typename TV>
 int fused_step_bell(const void* const* ins, void* const* outs, const long long* dims,
                     void* stream) {
   const long long lanes = dims[0], nr = dims[1], kb = dims[2], bs = dims[3];
   const long long n = nr * bs;
   const bool tiled = dims[12] != 0;
-  const long long splits = tiled ? dims[13] : 1;
+  const bool rows = tiled && dims[15] != 0;
+  const long long splits = tiled && !rows ? dims[13] : 1;
   cudaStream_t s = (cudaStream_t)stream;
   if (lanes <= 0 || nr <= 0 || kb <= 0 || bs <= 0 || splits < 1)
     return (int)cudaErrorInvalidValue;
@@ -525,7 +653,24 @@ int fused_step_bell(const void* const* ins, void* const* outs, const long long* 
     if (dims[4] != 0 || dims[5] != 0) return (int)cudaErrorInvalidValue;
     if (!scalar && (si_es != 1 || (si_ls != 0 && si_ls != n))) return (int)cudaErrorInvalidValue;
     cudaError_t e;
-    if constexpr (std::is_same<TV, double>::value) {
+    if (rows) {
+      if constexpr (std::is_same<TV, double>::value) {
+        RowArgs<TD> a;
+        a.row_ptr = static_cast<const int*>(ins[15]);
+        a.col = static_cast<const int*>(ins[16]);
+        a.val = static_cast<const TD*>(ins[17]);
+        a.x = static_cast<const double*>(ins[5]);
+        a.s_in = static_cast<const double*>(ins[3]);
+        a.si_ls = si_ls;
+        a.out = acc;
+        a.lanes = lanes;
+        a.n = n;
+        a.vec16 = (int)dims[16];
+        e = scalar ? launch_rows<TD, 1>(a, s) : launch_rows<TD, 2>(a, s);
+      } else {
+        return (int)cudaErrorInvalidValue;  // f64 vectors only
+      }
+    } else if constexpr (std::is_same<TV, double>::value) {
       const auto a = tile_args<TD, double>(ins[0], ins[1], ins[5], ins[3], si_ls, acc, lanes, nr,
                                            kb, bs, kDmmaRows, splits, dims[14]);
       e = scalar ? launch_dmma<TD, false>(a, nr, splits, s) : launch_dmma<TD, true>(a, nr, splits, s);

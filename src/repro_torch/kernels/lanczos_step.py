@@ -118,11 +118,12 @@ def _outputs(v, splits: int = 1):
 # on the FP64 tensor cores, "fma_f32" the shared f32 A on the CUDA cores,
 # "lane" a per-lane A; "live_rows" counts the launches whose tail read
 # only the live basis rows (``rows`` given). K4's by route (csrc/bell.cu,
-# ``spmv_bell.route``): "bell_dmma" a shared table with f64 vectors on the
-# FP64 tensor cores, "bell_fma_f32" a shared table with f32 vectors on
-# the CUDA cores, "bell_lane" a per-lane table.
+# ``bell_route``): "bell_dmma" a shared table with f64 vectors on the FP64
+# tensor cores, "bell_fma_f32" a shared table with f32 vectors on the CUDA
+# cores, "bell_lane" a per-lane table, "bell_rows" a shared table with f64
+# vectors and a sparse fill, walked by its row list.
 ROUTES = {"dmma": 0, "fma_f32": 0, "lane": 0, "live_rows": 0,
-          "bell_dmma": 0, "bell_fma_f32": 0, "bell_lane": 0}
+          "bell_dmma": 0, "bell_fma_f32": 0, "bell_lane": 0, "bell_rows": 0}
 
 # The shared-A matvecs of K3 tile 64 lanes by 128 rows of A (f64, tensor
 # cores; 1 CTA resident per SM) or by 32 rows (f32, CUDA cores; about 4
@@ -153,6 +154,29 @@ def bell_splits(lanes: int, nr: int, bs: int, kb: int, sms: int) -> int:
     tiles = -(-lanes // _BELL_LANES) * nr * -(-bs // _BELL_ROWS)
     chunks = kb * -(-bs // _BELL_DEPTH)
     return max(1, min(8, sms // tiles, chunks // 4))
+
+
+def bell_route(data, cols, vec_dtype, smem_optin: int) -> tuple:
+    """K4's route on the card and the row list it walks, if any:
+    ``("bell_lane", None)`` for a table per lane, ``("bell_fma_f32",
+    None)`` for a shared table with f32 vectors, ``("bell_rows", rows)``
+    for a shared table with f64 vectors whose stored values per non-zero
+    pass ``spmv_bell.ROWS_FILL`` and whose rows of two lanes fit in
+    ``smem_optin``, the shared memory a CTA may opt into (the rows route
+    stages a pair of lanes a CTA, ``csrc/bell.cu``), ``("bell_dmma",
+    None)`` otherwise. The route is the key of ``ROUTES`` its launch
+    counts under. Reads the table's fill from ``spmv_bell.table_rows``
+    (built at a table's first call, then cached)."""
+    from .spmv_bell import route, table_rows
+    if route(data, cols) != "tiled":
+        return "bell_lane", None
+    if vec_dtype != torch.float64:
+        return "bell_fma_f32", None
+    n = data.shape[-4] * data.shape[-2]
+    if 2 * n * 8 > smem_optin:
+        return "bell_dmma", None
+    rows = table_rows(data, cols).rows
+    return ("bell_dmma", None) if rows is None else ("bell_rows", rows)
 
 
 def _bind(fn):
@@ -238,7 +262,7 @@ _BELL_TYPES = {(torch.float32, torch.float64): "f32_f64",
 def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
     """Launch K4 (BELL matvec launch + tail launch) on CUDA tensors:
     v (L, R*bs), ``data`` (R, K, bs, bs) shared or (L, R, K, bs, bs)."""
-    from .spmv_bell import _lane_stride, route, vec16
+    from .spmv_bell import _lane_stride, vec16
     if v.device.type != "cuda":
         raise ValueError(f"fused_step_bell_cuda needs CUDA tensors, got "
                          f"{v.device}")
@@ -261,7 +285,10 @@ def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
         raise ValueError(f"fused_step_bell_cuda launches on nonempty inputs "
                          f"only, got v {tuple(v.shape)}, data "
                          f"{tuple(data.shape)}")
-    tiled = route(data, cols) == "tiled"
+    props = torch.cuda.get_device_properties(v.device)
+    which, rows = bell_route(data, cols, v.dtype,
+                             props.shared_memory_per_block_optin)
+    tiled = which != "bell_lane"
     so, so_ls, so_es = _strided(s_out, lanes, n, v)
     si, si_ls, si_es = _strided(s_in, lanes, n, v)
     scalar_in = (si_ls, si_es) == (0, 0)
@@ -271,24 +298,24 @@ def fused_step_bell_cuda(data, cols, s_out, s_in, t, v, v_prev, scalars):
         si_ls, si_es = n, 1
     tt, t_ls, t_es = _strided(t, lanes, n, v)
     sc = _scalars(scalars, lanes, v)
-    dmma = tiled and v.dtype == torch.float64
-    splits = bell_splits(lanes, nr, bs, kb, torch.cuda.get_device_properties(
-        v.device).multi_processor_count) if dmma else 1
+    splits = bell_splits(lanes, nr, bs, kb, props.multi_processor_count) \
+        if which == "bell_dmma" else 1
     alpha, beta, r, raw, acc = _outputs(v, splits)
     staged = (data, v) if scalar_in else (data, v, si)
-    dims = (ctypes.c_longlong * 15)(
+    dims = (ctypes.c_longlong * 17)(
         lanes, nr, kb, bs, _lane_stride(data, 4, lanes),
         _lane_stride(cols, 2, lanes), so_ls, so_es, si_ls, si_es, t_ls, t_es,
-        int(tiled), splits, int(vec16(bs, *staged)))
+        int(tiled), splits, int(vec16(bs, *staged)),
+        int(rows is not None), int(vec16(n, *staged[1:])))
     lib = _build.load("bell")
     fn = _bind(getattr(lib, "fused_step_bell_" + _BELL_TYPES[key]))
     with torch.cuda.device(v.device):
-        rc = fn(_build.ptr_array([data, cols, so, si, tt, v, v_prev, *sc]),
+        rc = fn(_build.ptr_array([data, cols, so, si, tt, v, v_prev, *sc,
+                                  *(rows or ())]),
                 _build.ptr_array([alpha, beta, r, *raw, acc]), dims,
                 _build.stream_of(v))
     _build.check(rc, "fused_step_bell")
-    ROUTES["bell_dmma" if dmma else "bell_fma_f32" if tiled
-           else "bell_lane"] += 1
+    ROUTES[which] += 1
     return alpha, beta, r, tuple(raw)
 
 

@@ -19,7 +19,10 @@ table's shape (``route``): ``"tiled"`` for a table shared by the lanes (a
 CTA per 64 lanes x 64 rows of a block row for f32 vectors, 128 rows for
 f64, so each block is read once per 64 lanes), ``"lane"`` for a table per
 lane (a CTA per block row and lane). ``ROUTES`` counts K2's launches by
-route.
+route. K4 has a third route for a shared table whose stored values are
+mostly zeros: ``bell_row_list`` lists its non-zeros row by row (with
+``row_list_matvec``, their plain product), and ``table_rows`` caches the
+list and the table's fill per table (``lanczos_step.bell_route``).
 
 K5, the multi-right-hand-side SpMM of block-Krylov mode, has the same
 contract over row-stacked blocks x (L, b, N): ``bell_matvec_mrhs_plain``
@@ -32,6 +35,9 @@ f32 table with ``bs`` a multiple of 128, ``"fma"`` otherwise;
 from __future__ import annotations
 
 import ctypes
+import math
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +75,99 @@ def bell_matvec_plain(data: torch.Tensor, cols: torch.Tensor,
     an f32 result, x (..., R*bs)."""
     return bell_matvec_ref(data.to(torch.float32), cols,
                            x.to(torch.float32))
+
+
+class RowList(NamedTuple):
+    """A shared table's stored non-zeros, row by row (CSR): row i of the
+    R*bs rows holds entries ``[row_ptr[i], row_ptr[i + 1])``, their global
+    columns ``col`` in ascending order and their values ``val`` in the
+    table's dtype. Padding blocks and stored zeros are dropped."""
+    row_ptr: torch.Tensor  # (R*bs + 1,) int32
+    col: torch.Tensor      # (nnz,) int32
+    val: torch.Tensor      # (nnz,) data.dtype
+
+
+def bell_row_list(data: torch.Tensor, cols: torch.Tensor,
+                  nnz: int | None = None) -> RowList:
+    """The row list of one shared table (``data`` (R, K, bs, bs), ``cols``
+    (R, K)), built on the table's device. ``nnz``, the count of the
+    table's non-zeros, is counted here (a device read) when not given."""
+    r, k, bs, _ = data.shape
+    n, width = r * bs, k * bs
+    # row (r, i) of the table holds entries (k, j) at columns cols[r,k]*bs+j
+    d = data.permute(0, 2, 1, 3).reshape(-1)
+    if nnz is None:
+        nnz = int(torch.count_nonzero(d))
+    flat = torch.nonzero_static(d, size=nnz).reshape(-1)
+    row, e = flat // width, flat % width
+    col = cols.long().reshape(-1)[(row // bs) * k + e // bs] * bs + e % bs
+    order = torch.argsort(row * n + col, stable=True)
+    row, col = row[order], col[order]
+    row_ptr = torch.searchsorted(
+        row, torch.arange(n + 1, device=data.device), out_int32=True)
+    return RowList(row_ptr, col.to(torch.int32), d[flat[order]])
+
+
+def row_list_matvec(rows: RowList, x: torch.Tensor) -> torch.Tensor:
+    """Plain product of a row list with x (..., R*bs), computed in x's
+    dtype: ``y[i] = sum_j val[j] * x[col[j]]`` over row i's entries."""
+    n = rows.row_ptr.numel() - 1
+    counts = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()
+    row = torch.repeat_interleave(
+        torch.arange(n, device=x.device), counts.to(x.device))
+    prod = x[..., rows.col.long()] * rows.val.to(x.dtype)
+    return torch.zeros(x.shape[:-1] + (n,), dtype=x.dtype,
+                       device=x.device).index_add_(-1, row, prod)
+
+
+# A shared table whose stored values per non-zero exceed ROWS_FILL is
+# walked by its row list on K4's f64 route (``lanczos_step.bell_route``):
+# the block tile multiplies every stored zero, the row list only the
+# non-zeros. On the H100 a whole K4 launch on either route takes the same
+# time at 29.5 stored values per non-zero and 64 lanes; at 256-4096 lanes
+# the row list wins from a lower fill (15-29; PERF.md keeps the sweep).
+ROWS_FILL = 30.0
+
+
+class TableRows(NamedTuple):
+    """A table's fill (stored values per non-zero; inf for an all-zero
+    table) and its row list, built only where the fill exceeds
+    ``ROWS_FILL``."""
+    fill: float
+    rows: RowList | None
+
+
+# id(data) -> (weak ref to data, weak ref to cols, their versions, rows)
+_TABLE_ROWS: dict = {}
+
+
+def table_rows(data: torch.Tensor, cols: torch.Tensor) -> TableRows:
+    """The fill and row list of a shared table, built at the table's first
+    call and cached. An entry is read only for the same ``data`` and
+    ``cols`` objects (held by weak reference) at the versions it was built
+    from: a table edited in place, or a new table at a freed table's
+    address, is rebuilt, never read stale. A build reads the count of
+    non-zeros on the host (one synchronisation); a cached read touches
+    nothing on the device."""
+    key = id(data)
+    entry = _TABLE_ROWS.get(key)
+    versions = (data._version, cols._version)
+    if entry is not None and entry[0]() is data and entry[1]() is cols \
+            and entry[2] == versions:
+        return entry[3]
+    nnz = int(torch.count_nonzero(data))
+    fill = data.numel() / nnz if nnz else math.inf
+    out = TableRows(fill, bell_row_list(data, cols, nnz)
+                    if fill > ROWS_FILL else None)
+
+    def drop(_, key=key):
+        got = _TABLE_ROWS.get(key)
+        if got is not None and got[0]() is None:
+            del _TABLE_ROWS[key]
+
+    _TABLE_ROWS[key] = (weakref.ref(data, drop), weakref.ref(cols),
+                        versions, out)
+    return out
 
 
 # Launches of K2 by route (csrc/bell.cu; K4's are in lanczos_step.ROUTES).

@@ -572,6 +572,83 @@ def test_k4_matches_plain(cuda, data_dtype, vec_dtype, rtol, n, bs, lanes,
         assert tls.bell_splits(lanes, n // bs, bs, 3, sms) > 1
 
 
+def _rewired_args(cuda, n, bs, lanes, data_dtype, scale, seed=7):
+    """K4's operands on a rewired ring (the GMRF cell's stand-in at a
+    smaller size: Watts-Strogatz rewiring spreads each block row over most
+    block columns, hundreds of stored values per non-zero), from a state
+    two steps in; s_in one scalar, a row shared by the lanes or a row a
+    lane (s_out the same)."""
+    from repro_torch.data import graph_laplacian
+    a_np = graph_laplacian(n, mean_degree=6, rewire=0.05, ridge=0.5,
+                           seed=seed)
+    bell = bell_from_dense(a_np, bs=bs, device=cuda)
+    w = np.linalg.eigvalsh(a_np)
+    rng = np.random.default_rng(seed)
+    v, vp, sc, _ = _state(bell, torch.as_tensor(
+        rng.standard_normal((lanes, n)), device=cuda), 0.5 * w[0],
+        2.0 * w[-1], 2, False)
+    npad = bell.data.shape[0] * bs
+    f64 = dict(dtype=torch.float64, device=cuda)
+    one = torch.ones((), **f64)
+    s_in = {"scalar": one,
+            "shared": torch.as_tensor(rng.uniform(0.9, 1.1, npad), **f64),
+            "per_lane": torch.as_tensor(rng.uniform(0.9, 1.1, (lanes, npad)),
+                                        **f64)}[scale]
+    pad = (0, npad - n)
+    return (bell.data.to(data_dtype).contiguous(), bell.cols, s_in, s_in,
+            one * 0.25, torch.nn.functional.pad(v, pad).contiguous(),
+            torch.nn.functional.pad(vp, pad).contiguous(), sc)
+
+
+# (n, bs): 2000 nodes leave a ragged last block row; 975 nodes in blocks of
+# 75 give an odd row length, staged one element a copy
+ROWS_CASES = [(2000, 128), (1024, 128), (975, 75)]
+
+
+@pytest.mark.parametrize("data_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,bs", ROWS_CASES)
+@pytest.mark.parametrize("lanes", [1, 3, 65])
+@pytest.mark.parametrize("scale", ["scalar", "shared", "per_lane"])
+def test_k4_rows_route_matches_plain(cuda, data_dtype, n, bs, lanes, scale):
+    """A sparse-filled shared table with f64 vectors takes the rows route
+    (one launch, counted once in LAUNCHES and in ROUTES["bell_rows"]) and
+    agrees with the plain version; two launches give the same bits."""
+    args = _rewired_args(cuda, n, bs, lanes, data_dtype, scale)
+    assert tsb.table_rows(args[0], args[1]).fill > tsb.ROWS_FILL
+    before = ops.LAUNCHES["fused_step_bell"], tls.ROUTES["bell_rows"]
+    got = ops.fused_step_bell(*args)
+    assert (ops.LAUNCHES["fused_step_bell"], tls.ROUTES["bell_rows"]) == \
+        (before[0] + 1, before[1] + 1)
+    _close(_flat(got), _flat(tls.fused_step_bell_plain(*args)), 1e-12,
+           "K4 rows", floor=1.0)
+    for x, y in zip(_flat(got), _flat(ops.fused_step_bell(*args))):
+        assert torch.equal(x, y)
+
+
+def test_k4_rows_route_keeps_a_nan_in_its_lane(cuda):
+    """A NaN planted in one lane's v reaches that lane's alpha through its
+    non-zero diagonal, so alpha, beta and r go non-finite in that lane
+    alone, as in the plain version; the other lanes agree with it."""
+    args = list(_rewired_args(cuda, 2000, 128, 5, torch.float32, "scalar"))
+    args[5] = args[5].clone()
+    args[5][2, 17] = float("nan")
+    got = ops.fused_step_bell(*args)
+    want = tls.fused_step_bell_plain(*args)
+    smem = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert tls.bell_route(args[0], args[1], torch.float64, smem)[0] == \
+        "bell_rows"
+    for out in (got, want):
+        alpha, beta, r, _ = out
+        bad = ~torch.isfinite(alpha)
+        assert bad.tolist() == [False, False, True, False, False]
+        assert torch.equal(~torch.isfinite(beta), bad)
+        assert torch.equal(~torch.isfinite(r).all(dim=1), bad)
+        assert bool(torch.isfinite(r[~bad]).all())
+    keep = [0, 1, 3, 4]
+    _close([x[keep] for x in _flat(got)], [x[keep] for x in _flat(want)],
+           1e-12, "K4 rows, finite lanes", floor=1.0)
+
+
 def test_k1_to_k4_refuse_empty_inputs(cuda):
     """No lane: the card raises rather than count a launch that did not
     happen (K5-K7 have their own cases)."""
